@@ -1,7 +1,7 @@
 """BASELINE Config 4: multiple walkers — 8 replicas sharded over the device
-mesh, shared bias grid synchronized by psum over ICI each stride.
+mesh, shared bias grid synchronized by psum each stride.
 
-On a v5e slice each walker gets a chip; on one chip / CPU this runs with
+Each walker gets a device; on one device / CPU this runs with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu.
 
 Run: python examples/config4_walkers.py [--steps 100000]

@@ -1,4 +1,4 @@
-"""metadyn_tpu — TPU-native enhanced-sampling molecular dynamics.
+"""metadyn_tpu — on-device enhanced-sampling molecular dynamics in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of
 jglaser/metadynamics-plugin (HOOMD-blue metadynamics) as a standalone

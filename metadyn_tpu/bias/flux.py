@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .grid import BiasGrid, GridSpec
 from .metad import BiasState

@@ -5,9 +5,9 @@ Reference parity: ``IndexGrid.{h,cc}`` + the grid mode of
 on an N-d regular grid, every-grid-point Gaussian update each deposit, and
 multilinear interpolation of V and its derivative between deposits.
 
-TPU-first: the grid is a dense f32 array updated by one fused elementwise
+Design: the grid is a dense f32 array updated by one fused elementwise
 kernel per deposit (no scatter — grids are small, the full-grid update is
-VPU-trivial and keeps the op shape static).  Alongside V we accumulate the
+cheap and keeps the op shape static).  Alongside V we accumulate the
 *analytic* derivative grids ∂V/∂s_d (the PLUMED approach), so bias forces are
 smooth multilinear interpolations instead of the noisier
 derivative-of-interpolant; both derivative paths exist and are cross-tested
@@ -21,7 +21,7 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 
 @struct.dataclass

@@ -5,7 +5,7 @@ V(s) as an in-memory list of deposited hills and evaluates V and ∂V/∂s by
 an analytic sum over all hills each step (recalled, SURVEY.md §3.1
 "non-grid mode: append hill (s⃗, W') to in-memory list"; §7 hard part 3).
 
-TPU-first design: a FIXED-capacity on-device hill buffer (centers,
+Design: a FIXED-capacity on-device hill buffer (centers,
 heights) carried through the jitted stride scan; the O(n_hills) analytic
 sum is a masked dense reduction over the buffer (shape-static, fuses into
 the step).  When the buffer fills, new hills either **spill onto a coarse
@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .grid import BiasGrid, GridSpec, hill_field, interp
 

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .grid import BiasGrid, GridSpec, deposit_hill, value_and_grad
 

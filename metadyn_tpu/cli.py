@@ -226,6 +226,18 @@ def _integrator_factory(icfg, system, packed: bool, spec=None,
     raise ValueError(f"unknown integrator kind {kind}")
 
 
+_REMOVED_KEYS = {
+    ("metadynamics", "mts_lag"):
+        "the lagged fused-MTS mode was removed; use bias_every for "
+        "multiple-time-stepping of the bias force",
+    ("engine", "pair_pallas"):
+        "the pair force is chosen by platform (the Triton kernel on the "
+        "GPU, the XLA roll sweep elsewhere)",
+    ("engine", "order_pallas"):
+        "the order CVs run on the XLA roll sweep on every platform",
+}
+
+
 def build_sampler(cfg: dict, resume: bool = False):
     import jax
     import jax.numpy as jnp
@@ -241,6 +253,9 @@ def build_sampler(cfg: dict, resume: bool = False):
     from .parallel.walkers import WalkerSampler
     from .utils import lattice
 
+    for (section, key), why in _REMOVED_KEYS.items():
+        if key in cfg.get(section, {}):
+            raise ValueError(f"{section}.{key} is no longer supported: {why}")
     sys_cfg = cfg["system"]
     icfg = cfg["integrator"]
     kT = float(icfg.get("kT", 1.0))
@@ -419,9 +434,7 @@ def build_sampler(cfg: dict, resume: bool = False):
                 engine = SpatialPackedEngine2D(
                     spec, wmesh, nested=True,
                     rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                    with_energy=want_energy,
-                    pair_pallas=eng_cfg.get("pair_pallas"),
-                    order_pallas=eng_cfg.get("order_pallas"))
+                    with_energy=want_energy)
             else:
                 need = nx * ny
                 if len(devs) < need:
@@ -434,9 +447,7 @@ def build_sampler(cfg: dict, resume: bool = False):
                 engine = SpatialPackedEngine2D(
                     spec, m2d,
                     rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                    with_energy=want_energy,
-                    pair_pallas=eng_cfg.get("pair_pallas"),
-                    order_pallas=eng_cfg.get("order_pallas"))
+                    with_energy=want_energy)
             bad = {c["kind"] for c in cvs_cfg} - {
                 "lamellar", "msd", "steinhardt", "q6", "coordination",
                 "wte", "mesh"}
@@ -476,17 +487,13 @@ def build_sampler(cfg: dict, resume: bool = False):
                 engine = SpatialPackedEngine(
                     spec, wmesh, nested=True,
                     rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                    with_energy=want_energy,
-                    pair_pallas=eng_cfg.get("pair_pallas"),
-                    order_pallas=eng_cfg.get("order_pallas"))
+                    with_energy=want_energy)
             else:
                 smesh = _JaxMesh(np.asarray(devs[:sp_dev]), ("space",))
                 engine = SpatialPackedEngine(
                     spec, smesh,
                     rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                    with_energy=want_energy,
-                    pair_pallas=eng_cfg.get("pair_pallas"),
-                    order_pallas=eng_cfg.get("order_pallas"))
+                    with_energy=want_energy)
         else:
             engine = PackedEngine(
                 spec, rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
@@ -692,10 +699,6 @@ def build_sampler(cfg: dict, resume: bool = False):
 
     if n_walkers > 1:
         assert grid is not None, "multi-walker mode needs a CV grid"
-        if bool(mcfg.get("mts_lag", False)):
-            print("note: metadynamics.mts_lag applies to single-replica "
-                  "runs; multi-walker mode uses plain bias_every MTS",
-                  file=sys.stderr)
         states, wk_mesh = _stacked_walker_states()
         sampler = WalkerSampler(
             system, states, engine, cvs=cvs, grid_spec=grid, hills=hills,
@@ -723,48 +726,39 @@ def build_sampler(cfg: dict, resume: bool = False):
         chunks_per_block=int(cfg.get("chunks_per_block", 16)),
         add_hills=add_hills,
         bias_every=bias_every,
-        # the fused lagged-MTS hot path (sentinel packed engine + order
-        # CVs; see sampler.make_lagged_parts) — the Config-3 56M/s mode.
-        # Degrades to plain MTS where unsupported (e.g. CPU runs without
-        # the Pallas kernels) rather than failing the config.
-        mts_lag=_want_lag(mcfg, engine, cvs),
     )
     return sampler, cfg
 
 
-def _want_lag(mcfg, engine, cvs) -> bool:
-    if not bool(mcfg.get("mts_lag", False)):
-        return False
-    if int(mcfg.get("bias_every", 1)) <= 1:
-        print("note: metadynamics.mts_lag needs bias_every > 1; "
-              "ignoring", file=sys.stderr)
-        return False
-    from .sampler import lag_supported
-    if lag_supported(engine, cvs):
-        return True
-    print("note: metadynamics.mts_lag requested but unsupported for this "
-          "engine/CV combination (needs the Pallas sentinel-layout packed "
-          "engine + order CVs); falling back to plain bias_every MTS",
-          file=sys.stderr)
-    return False
+def load_config(path: str) -> dict:
+    """Read a run config: ``.json`` with the standard library, anything
+    else as YAML (needs PyYAML)."""
+    with open(path) as f:
+        if path.endswith(".json"):
+            import json
+            return json.load(f)
+        try:
+            import yaml
+        except ImportError:
+            raise SystemExit(
+                f"reading {path} needs PyYAML, which is not installed; "
+                "install it or write the config as .json") from None
+        return yaml.safe_load(f)
 
 
 def cmd_run(args) -> int:
     import jax
-    # persistent compile cache: first TPU compile of a biased step is slow.
-    # Host-scoped dir (utils/cache.py; METADYN_JAX_CACHE overrides) — a
-    # shared dir can replay another host's CPU AOT code → SIGSEGV.
+    # persistent compile cache (utils/cache.py: JAX_COMPILATION_CACHE_DIR,
+    # else <repo>/.jax_cache on the GPU)
     from .utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    import yaml
     from .io.metrics import CSVLogger
     from .io.grid_file import dump_grid
     from .io.checkpoint import save_checkpoint, load_checkpoint
     from .io.trajectory import make_trajectory_writer
     from .sampler import MetadSampler
 
-    with open(args.config) as f:
-        cfg = yaml.safe_load(f)
+    cfg = load_config(args.config)
     sampler, cfg = build_sampler(cfg, resume=args.resume)
     out_cfg = cfg.get("output", {})
     logger = (CSVLogger(out_cfg["log_file"], overwrite=not args.resume)
@@ -979,9 +973,10 @@ def cmd_rdf(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="metadyn",
-                                description="TPU-native metadynamics MD")
+                                description="on-device metadynamics MD")
     sub = p.add_subparsers(dest="cmd", required=True)
-    runp = sub.add_parser("run", help="run a simulation from a YAML config")
+    runp = sub.add_parser(
+        "run", help="run a simulation from a YAML or JSON config")
     runp.add_argument("config")
     runp.add_argument("--resume", action="store_true",
                       help="resume from output.checkpoint")

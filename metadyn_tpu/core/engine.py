@@ -1,7 +1,7 @@
 """Force engines: force evaluation + auxiliary structures (neighbor lists).
 
 The reference separates ``ForceCompute`` (per-step) from ``NeighborList``
-(rebuilt on demand via a distance check, SURVEY.md §2b).  On TPU a
+(rebuilt on demand via a distance check, SURVEY.md §2b).  On device a
 data-dependent rebuild inside ``lax.scan`` would force a host sync or a
 both-branches ``cond``, so engines rebuild on a **fixed cadence**
 (``rebuild_every`` steps, SURVEY.md §7 hard part 1): the skin is sized so
@@ -27,7 +27,7 @@ from typing import Any, Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .state import State, System, temperature
 from .box import Box
@@ -145,7 +145,7 @@ class AllPairsEngine(ForceEngine):
 
 class NeighborEngine(ForceEngine):
     """Particle-order cell-list engine (gather-based; CPU/medium systems —
-    the TPU hot path is packed_engine.PackedEngine)."""
+    the production engine is packed_engine.PackedEngine)."""
 
     def __init__(self, system: System, cell_spec: CellSpec,
                  pair_params: PairParams, pair_kernel: PairKernel,

@@ -1,4 +1,4 @@
-"""Force-field composition — the TPU equivalent of HOOMD's net-force pass.
+"""Force-field composition — the JAX equivalent of HOOMD's net-force pass.
 
 Reference parity: ``IntegratorTwoStep::computeNetForce`` iterating over
 registered ``ForceCompute`` objects (SURVEY.md §3.1).  Here a force field is
@@ -11,7 +11,7 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from .state import State, System
 from ..ops.pairs import PairKernel, PairParams, PairForceResult, all_pairs_force

@@ -1,4 +1,4 @@
-"""Particle state pytree — the TPU-native equivalent of HOOMD's ParticleData.
+"""Particle state pytree — the JAX equivalent of HOOMD's ParticleData.
 
 Reference parity: HOOMD-blue ``ParticleData`` / ``SystemDefinition``
 (positions, velocities, types, images, masses, charges, box) — SURVEY.md §2b.
@@ -12,7 +12,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .box import Box, wrap
 

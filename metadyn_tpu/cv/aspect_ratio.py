@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.state import State, System
 from ..bias.grid import BiasGrid, value_and_grad

@@ -4,7 +4,7 @@ Reference parity: ``metadynamics/CollectiveVariable.{h,cc}`` (recalled, see
 SURVEY.md §2a) — the C++ ABC with ``getCurrentValue(timestep)`` and bias-force
 application ``F_i += −bias · ∂s/∂r_i``.
 
-TPU-first re-design: a CV is a pure function ``value(state, system) -> f32``;
+Design: a CV is a pure function ``value(state, system) -> f32``;
 bias forces come from ONE reverse-mode vjp through the stacked CV values with
 the cotangent ``∂V/∂s`` (SURVEY.md §7 tenet 2) — the chain rule the reference
 hand-codes per CV in CUDA.  Hand-fused force kernels can override this per CV
@@ -45,7 +45,7 @@ def cv_values_and_bias_force(
 ) -> tuple[jax.Array, jax.Array]:
     """Return (s, F_bias) where F_bias = −Σ_d (∂V/∂s_d) ∂s_d/∂r.
 
-    One vjp covers every registered CV — the TPU analog of the reference's
+    One vjp covers every registered CV — the JAX analog of the reference's
     per-CV ``setBiasFactor`` + ``computeForces`` pass (SURVEY.md §3.1).
     """
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..core.state import State, System
 
@@ -53,7 +53,9 @@ class LamellarOP:
             from ..core.box import reciprocal_matrix
             k = 2.0 * jnp.pi * jnp.matmul(
                 self.lattice_vectors, reciprocal_matrix(state.box),
-                precision="highest")   # TPU default matmul = bf16 passes                                              # (M, 3)
-        phase = state.pos @ k.T + self.phases[None, :]                  # (N, M)
+                precision="highest")                            # (M, 3)
+        # full f32: a default-precision f32 matmul runs in TF32 on the GPU
+        phase = jnp.matmul(state.pos, k.T, precision="highest") \
+            + self.phases[None, :]                                      # (N, M)
         amp = self.mode[system.types]                                   # (N,)
         return jnp.sum(amp[:, None] * jnp.cos(phase)) / state.pos.shape[0]

@@ -9,7 +9,7 @@ Reference parity: ``metadynamics/OrderParameterMesh{,GPU}.{h,cc,cu}``
 
 with u(k) a mode/convolution kernel (here: a Gaussian window around a
 target |k₀| by default, or arbitrary per-k weights).  cuFFT/kissFFT/dfft
-become ``jnp.fft.fftn`` (XLA TPU FFT); the CUDA scatter/gather kernels
+become ``jnp.fft.fftn`` (XLA's FFT); the CUDA scatter/gather kernels
 become a differentiable CIC scatter-add — bias forces come from the shared
 vjp (gather in reverse mode), matching the reference's mesh-force
 back-interpolation (SURVEY.md §3.3).
@@ -22,7 +22,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.state import State, System
 

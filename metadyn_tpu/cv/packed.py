@@ -11,7 +11,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.box import reciprocal_matrix
 from ..core.state import System

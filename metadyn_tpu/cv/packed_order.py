@@ -16,7 +16,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.state import System
 from ..ops.packed import (PackedSpec, PackedState, _roll_offsets,
@@ -157,44 +157,8 @@ class PackedSteinhardtQl:
     def log_name(self) -> str:
         return f"cv_{self.name}"
 
-    # --- homogeneous-monomial protocol (ops/packed_fused_pallas.py) ------
-    # The fused LJ+CV kernel accumulates Σ w·mono_l(u) per pair and
-    # contracts three static-per-eval coefficient vectors for the force;
-    # these methods supply the (cached) basis-change matrices.
-    sphere_poly = True
-
-    def mono_value_decode(self, mono_sums, nb):
-        """(Σ w·mono_l, Σ w) → the (re, im, nb) terms structure."""
-        from .ylm_mono import ylm_mono_matrix
-        C = jnp.asarray(ylm_mono_matrix(self.l), jnp.float32)
-        s = C @ mono_sums
-        return (s[:self.l + 1], s[self.l + 1:], nb)
-
-    def mono_force_vecs(self, aux):
-        """grad_aux output → (bx, by, bz) degree-(l−1) coefficient
-        vectors: per pair ∂φ/∂u_α = b_α·mono_{l−1}(u) with φ the biased
-        per-pair scalar of :meth:`pair_grad_terms` (oracle-tested)."""
-        from .ylm_mono import diff_matrices, ylm_mono_matrix
-        gre, gim = aux
-        C = jnp.asarray(ylm_mono_matrix(self.l), jnp.float32)
-        a = jnp.stack([jnp.asarray(x, jnp.float32)
-                       for x in (list(gre) + list(gim))]) @ C
-        Dx, Dy, Dz = (jnp.asarray(D, jnp.float32)
-                      for D in diff_matrices(self.l))
-        return Dx @ a, Dy @ a, Dz @ a
-
-    # --- kernel-level (flat scalar) protocol ------------------------------
-    # The Pallas order kernels (ops/packed_order_pallas.py) accumulate the
-    # per-pair partials as FLAT SCALARS in output lanes — no small-array
-    # stacking inside the kernel.  The XLA sweep entry points stack the
-    # flat tuple back into the (re, im, nb) structure.
-    @property
-    def n_value_terms(self) -> int:
-        return 2 * (self.l + 1) + 1
-
-    def pair_value_terms_flat(self, dx, dy, dz, r2, w):
-        """Per-pair partial sums as a flat tuple of scalars:
-        (Re S_0..l, Im S_0..l, n_b)."""
+    def pair_value_terms(self, dx, dy, dz, r2, w):
+        """Per-pair partials for the fused roll sweep: (Re S_m, Im S_m, n_b)."""
         coeffs = _plm_over_sinm_coeffs(self.l)
         norms = _norms(self.l)
         rcq2 = self.r_cut ** 2
@@ -213,29 +177,7 @@ class PackedSteinhardtQl:
             re.append(jnp.sum(w * norms[m] * pl_ * pr))
             im.append(jnp.sum(w * norms[m] * pl_ * pi))
             pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
-        return tuple(re) + tuple(im) + (jnp.sum(w),)
-
-    def terms_from_flat(self, flat):
-        k = self.l + 1
-        return (jnp.stack(flat[:k]), jnp.stack(flat[k:2 * k]), flat[2 * k])
-
-    def pair_value_terms(self, dx, dy, dz, r2, w):
-        """Per-pair partials for the fused roll sweep: (Re S_m, Im S_m, n_b)."""
-        return self.terms_from_flat(
-            self.pair_value_terms_flat(dx, dy, dz, r2, w))
-
-    @property
-    def aux_size(self) -> int:
-        return 2 * (self.l + 1)
-
-    def aux_flat(self, aux):
-        gre, gim = aux
-        k = self.l + 1
-        return tuple(gre[m] for m in range(k)) + tuple(gim[m] for m in range(k))
-
-    def aux_from_flat(self, flat):
-        k = self.l + 1
-        return (list(flat[:k]), list(flat[k:2 * k]))
+        return (jnp.stack(re), jnp.stack(im), jnp.sum(w))
 
     def finalize_value(self, terms) -> jax.Array:
         re, im, nb = terms
@@ -311,67 +253,6 @@ class PackedSteinhardtQl:
         return (jnp.where(inside, gx, z), jnp.where(inside, gy, z),
                 jnp.where(inside, gz, z))
 
-    def pair_value_and_grad(self, dx, dy, dz, r2, wv, aux):
-        """Interleaved per-pair value + bias-force math with SHARED
-        P_lm/u^m recurrence chains — the fused-kernel hot path
-        (ops/packed_fused_pallas.py): computing both in one pass reuses
-        pl_, pr, pi across the value sums and the force accumulators
-        (~25% fewer VPU ops than calling :meth:`pair_value_terms_flat`
-        and :meth:`pair_grad_terms` separately; oracle-tested).
-
-        ``wv``: value weight (validity × Newton weight; the r_cut mask is
-        applied internally).  ``aux``: (gre, gim) from :meth:`grad_aux`.
-        Returns (flat value terms, gx, gy, gz) with the force components
-        masked to real in-cutoff pairs."""
-        gre, gim = aux
-        coeffs = _plm_over_sinm_coeffs(self.l)
-        dcoeffs = [np.asarray([c[i] * i for i in range(1, c.shape[0])]
-                              or [0.0]) for c in coeffs]
-        norms = _norms(self.l)
-        inside = (r2 < self.r_cut ** 2) & (r2 > 1e-12)
-        insf = inside.astype(jnp.float32)
-        w = wv * insf
-        r2s = jnp.where(r2 > 1e-12, r2, 1.0)
-        inv_r = jax.lax.rsqrt(r2s)
-        cth = dz * inv_r
-        ux, uy = dx * inv_r, dy * inv_r
-        pr = jnp.ones_like(cth)
-        pi = jnp.zeros_like(cth)
-        qr = jnp.zeros_like(cth)
-        qi = jnp.zeros_like(cth)
-        D = jnp.zeros_like(cth)
-        E = jnp.zeros_like(cth)
-        F = jnp.zeros_like(cth)
-        BU = jnp.zeros_like(cth)
-        re_out, im_out = [], []
-        for m in range(self.l + 1):
-            pl_ = jnp.zeros_like(cth)
-            for a in coeffs[m][::-1]:
-                pl_ = pl_ * cth + a
-            dpl = jnp.zeros_like(cth)
-            for a in dcoeffs[m][::-1]:
-                dpl = dpl * cth + a
-            wn = w * (norms[m] * pl_)
-            re_out.append(jnp.sum(wn * pr))
-            im_out.append(jnp.sum(wn * pi))
-            a_re = gre[m]
-            a_im = gim[m]
-            D = D + norms[m] * dpl * (a_re * pr + a_im * pi)
-            if m > 0:
-                br = m * (a_re * qr + a_im * qi)
-                bi = m * (a_re * qi - a_im * qr)
-                E = E + norms[m] * pl_ * br
-                F = F + norms[m] * pl_ * bi
-                BU = BU + norms[m] * pl_ * (br * ux - bi * uy)
-            qr, qi = pr, pi
-            pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
-        mi = insf * inv_r
-        gx = (D * (-cth * ux) + E - ux * BU) * mi
-        gy = (D * (-cth * uy) - F - uy * BU) * mi
-        gz = (D * (1.0 - cth * cth) - cth * BU) * mi
-        flat = tuple(re_out) + tuple(im_out) + (jnp.sum(w),)
-        return flat, gx, gy, gz
-
     def accum_bias_force(self, state: PackedState, system: System,
                          dVds: jax.Array, f_acc: jax.Array) -> jax.Array:
         """Hot-path analytic bias force (SURVEY.md §7 hard part 4, the
@@ -425,22 +306,6 @@ class PackedCoordination:
         sc = 1.0 / (1.0 + (self.r_cut / self.r0) ** 6)
         return sc, 1.0 / (1.0 - sc)
 
-    # --- kernel-level (flat scalar) protocol (see PackedSteinhardtQl) ----
-    n_value_terms = 1
-    aux_size = 1
-
-    def pair_value_terms_flat(self, dx, dy, dz, r2, w):
-        return self.pair_value_terms(dx, dy, dz, r2, w)
-
-    def terms_from_flat(self, flat):
-        return tuple(flat)
-
-    def aux_flat(self, aux):
-        return (aux,)
-
-    def aux_from_flat(self, flat):
-        return flat[0]
-
     def pair_value_terms(self, dx, dy, dz, r2, w):
         # [1−(r/r0)^6]/[1−(r/r0)^12] ≡ 1/(1+(r/r0)^6): regular form —
         # the quotient form NaN-poisons autodiff near r = r0
@@ -489,7 +354,7 @@ class PackedCoordination:
         return f_acc + g
 
 
-def make_fused_order_force(cvs, spec: PackedSpec, use_pallas: bool = False):
+def make_fused_order_force(cvs, spec: PackedSpec):
     """Fused multi-CV roll sweep: ONE value traversal + ONE force
     traversal for ALL order CVs, sharing the rolled partner stacks
     (VERDICT r2 weak #2: Config-3 ran 4–5 separate (cap,cap,C) sweeps
@@ -500,30 +365,7 @@ def make_fused_order_force(cvs, spec: PackedSpec, use_pallas: bool = False):
       force_fn(state, terms, dVds) -> (3, Npad) bias force g
     Requires every cv to implement the roll-sweep protocol
     (pair_value_terms / finalize_value / grad_aux / pair_grad_terms).
-
-    ``use_pallas=True`` swaps both traversals for the VMEM-resident Pallas
-    twins (ops/packed_order_pallas.py) — same per-pair math, traced from
-    the same CV methods; the XLA sweep stays the cross-check oracle.
     """
-    if use_pallas:
-        from ..ops.packed_order_pallas import (
-            order_values_pallas, order_force_pallas)
-
-        def values_fn(state):
-            terms, stacks = order_values_pallas(state, spec, cvs)
-            s = jnp.stack([cv.finalize_value(t)
-                           for cv, t in zip(cvs, terms)])
-            return s, (terms, stacks)
-
-        def force_fn(state, ctx, dVds):
-            terms, stacks = ctx
-            auxs = [cv.grad_aux(t, dVds[i])
-                    for i, (cv, t) in enumerate(zip(cvs, terms))]
-            return order_force_pallas(state, spec, cvs, auxs,
-                                      stacks=stacks)
-
-        return values_fn, force_fn
-
     def values_fn(state):
         stacks = _half_partner_stacks(state, spec)
 
@@ -571,8 +413,8 @@ def _table_pairs(state: PackedState, spec: PackedSpec, tbl):
 
 def make_table_order_force(cvs, spec: PackedSpec):
     """Neighbor-table twin of :func:`make_fused_order_force` — the
-    roll-sweep masks ~96% padding at liquid density (VERDICT r3: ≈11 of
-    12.4 ms/step at Config 3); the table path gathers only real pairs.
+    roll-sweep masks ~96% padding at liquid density; the table path
+    gathers only real pairs.
 
     Returns ``(values_fn, force_fn)``:
       values_fn(state, tbl) -> (s_stack, terms)

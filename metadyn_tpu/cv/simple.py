@@ -12,7 +12,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.state import State, System
 

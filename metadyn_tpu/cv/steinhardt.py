@@ -23,7 +23,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.box import minimum_image
 from ..core.state import State, System

@@ -1,7 +1,7 @@
 """Integrator interface and the lax.scan step driver.
 
 Reference parity: HOOMD ``IntegratorTwoStep`` + ``TwoStep*`` methods
-(SURVEY.md §2b, §3.1).  A TPU integrator is a pure function
+(SURVEY.md §2b, §3.1).  An integrator is a pure function
 ``step(state, key) -> state`` built by a factory that closes over the force
 function and parameters; strides of steps run under ``lax.scan`` so the whole
 MD inner loop is one fused XLA program (SURVEY.md §7 tenet 1).

@@ -21,9 +21,9 @@ def _pin_vacant(r_new: jax.Array, r_old: jax.Array) -> jax.Array:
     """Pin vacant slots at the EXACT coordinate sentinel across the step.
 
     In uniform-eps mode (ops/packed.py) vacant slots sit at VACANT_X; the
-    Pallas pair kernel culls them purely by the r² tests (r²==0 exactly for
+    pair paths cull them purely by the r² tests (r²==0 exactly for
     sentinel–sentinel pairs, r²≥L² for image-shifted ones, r²~1e14 for
-    vacant–real) — see packed_pallas2._kernel.  That invariant requires
+    vacant–real) — see ops/packed_triton._pair_terms.  That invariant requires
     vacant slots NOT to drift under the Langevin noise kick, so every
     integrator re-pins them each step (no-op in non-uniform mode, where no
     coordinate exceeds VACANT_THR).  This also keeps vacant slots from
@@ -113,8 +113,8 @@ def make_packed_npt_scr_step(
 
     Pass the ``engine`` the ``force_fn`` came from to get a LOUD check
     that its inner force path produces a live per-step virial: the
-    Pallas inner kernels (``use_pallas``/``pair_pallas`` without
-    ``with_energy``) return virial=0, and a barostat silently
+    Triton pair kernel without ``with_energy`` skips the virial, and a
+    barostat silently
     integrating against zero virial expands the box into vacuum
     (round-4 advisor).  The CLI always passes it.
     """

@@ -4,14 +4,14 @@ Reference parity: HOOMD-blue ``PotentialBondHarmonic`` / ``PotentialBondFENE``
 (SURVEY.md §2b) — needed for the bead-spring diblock copolymer melt configs
 (BASELINE.json:8,11).
 
-TPU-first: gather–compute–scatter-add over the static bond table; XLA TPU
+Design: gather–compute–scatter-add over the static bond table; the
 scatter-add is deterministic (an improvement over CUDA atomics — SURVEY.md §5).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.box import Box, minimum_image
 from .pairs import PairForceResult

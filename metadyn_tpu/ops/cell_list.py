@@ -1,21 +1,21 @@
-"""Cell list + fixed-capacity neighbor list — the TPU-native centerpiece.
+"""Cell list + fixed-capacity neighbor list (particle-order engines).
 
 Reference parity: HOOMD-blue ``CellList`` / ``NeighborList`` (CUDA
 bin-and-traverse kernels; SURVEY.md §2b/§2c item 7).  This is the
 BASELINE.json:5 "Pallas cell-list and neighbor kernels replace HOOMD's
 ParticleData and integration core" requirement.
 
-TPU-first design (SURVEY.md §7 tenet 3 — fixed shapes everywhere):
+Design (SURVEY.md §7 tenet 3 — fixed shapes everywhere):
 
 1. **Binning by sort** (deterministic, unlike CUDA atomics): particles are
    argsorted by linear cell id; the rank of each particle within its cell
-   indexes into a dense (n_cells, capacity) table.  XLA TPU sort is fast and
-   the scatter is deterministic — bit-reproducible cell lists, an
+   indexes into a dense (n_cells, capacity) table.  The sort and the
+   scatter are deterministic — bit-reproducible cell lists, an
    improvement over the reference documented in SURVEY.md §5.
 2. **27-cell candidate gather** → (N, 27·capacity) candidates, distance
    filter, then **compaction by stable sort** to a fixed (N, max_neighbors)
    FULL neighbor list (each pair listed from both sides: double compute, no
-   scatter in the hot force loop — the right trade on TPU).
+   scatter in the hot force loop).
 3. **Overflow flags** (cell capacity, neighbor capacity) surfaced to
    metrics instead of dynamic reallocation; capacities are chosen with
    headroom at build time and re-validated every rebuild.
@@ -29,7 +29,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.box import Box, minimum_image
 
@@ -86,7 +86,7 @@ class CellSpec:
             # particles within r_list sphere with 2x headroom
             mean_nbrs = density * 4.0 / 3.0 * np.pi * r_list**3
             max_neighbors = max(8, int(np.ceil(mean_nbrs * 2.0)))
-        # keep the lane dimension friendly: round capacity products up to 8
+        # round the neighbor capacity up to a multiple of 8
         max_neighbors = ((max_neighbors + 7) // 8) * 8
         return cls(cells_per_dim=cpd, cell_capacity=cell_capacity,
                    max_neighbors=max_neighbors, r_cut=r_cut, skin=skin)
@@ -135,11 +135,9 @@ def build_neighbor_list(
     (N, E) i32 table of particle ids to drop (HOOMD's bonded-pair
     exclusions), sentinel N.
 
-    TPU layout notes (measured, v5e): every wide intermediate is kept 2-D
-    with the WIDE axis minor — an (N, C, 3) array would be lane-padded
-    3→128 (42× memory blowup, OOM at 64k particles).  Compaction uses
-    cumsum + flat scatter instead of a row sort: a (N, 27·cap) sort is
-    ~50 ms on TPU, the scatter path is bandwidth-bound.
+    Every wide intermediate is kept 2-D with the wide axis minor, and
+    compaction uses cumsum + flat scatter instead of a (N, 27·cap) row
+    sort.
     """
     n = pos.shape[0]
     cid = _linear_id(_cell_coords(pos, box, spec), spec)            # (N,)

@@ -5,9 +5,8 @@ kernels (SURVEY.md §2c item 8).  Full-list formulation: every pair appears
 on both rows, so the force is a pure gather + VPU reduction with no
 scatter — energy and virial take the ½ factor.
 
-TPU layout: all wide intermediates are (N, K) with K minor (lane-aligned);
-coordinates are handled as separate components so no (N, K, 3) array is
-ever materialized (3 would be lane-padded to 128 — see cell_list.py).
+Layout: all wide intermediates are (N, K) with K minor; coordinates are
+handled as separate components so no (N, K, 3) array is materialized.
 """
 from __future__ import annotations
 

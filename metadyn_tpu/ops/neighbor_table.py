@@ -5,19 +5,13 @@ Reference parity: HOOMD's ``NeighborList`` consumed by ``SteinhardtQl``
 GPU plugin evaluates Y_lm over an explicit per-particle neighbor list,
 not over all candidate pairs.
 
-Where it wins (measured, round 3): the 27-offset roll sweep evaluates
-the order-CV math on EVERY (cap, cap, cell) pair slot and masks — at
-Config-3 density only ~4-12% of those slots are real pairs inside the
-CV cutoffs.  The table compacts the sweep ONCE per repack into a fixed
-(K, Npad) index table so the per-step sweeps touch only real pairs —
-a large win wherever indexed gather is cheap (CPU, and the differential
-test tier).  ⚠ On the TPU v5e measured this round, XLA's scalar
-gather/scatter sustains only ~0.5 G random accesses/s: the (K, Npad)
-coordinate gather costs ~19 ms at Config-3 scale — SLOWER than the
-5.6 ms masked roll traversal it replaces, and the build's 95 M-update
-scatter costs ~0.7 s.  The TPU hot path therefore keeps the masked
-roll sweep; select the table engine (``PackedEngine(nbr_table=...)``)
-only where gather is fast.
+Why: the 27-offset roll sweep evaluates the order-CV math on EVERY
+(cap, cap, cell) pair slot and masks — at Config-3 density only ~4-12%
+of those slots are real pairs inside the CV cutoffs (counted from the
+shapes).  The table compacts the sweep ONCE per repack into a fixed
+(K, Npad) index table so the per-step sweeps touch only real pairs, at
+the price of indexed gathers.  Whether that pays on the GPU is not
+measured yet; select it with ``PackedEngine(nbr_table=...)``.
 
 Freshness contract: built with radius ``r_nb >= max CV r_cut +
 spec.skin``, the table stays complete between distance-triggered

@@ -5,8 +5,8 @@ LJ (with energy shift), WCA, and a soft DPD-like repulsion for copolymer
 melts.  Parameters are (n_types, n_types) tables like HOOMD's per-type-pair
 coefficient matrices.
 
-TPU-first design: a pair potential is a pure function of squared distance
-``u(r2) -> (energy, minus_du_dr2)`` evaluated on the VPU; the all-pairs
+Design: a pair potential is a pure function of squared distance
+``u(r2) -> (energy, minus_du_dr2)``; the all-pairs
 driver streams row blocks with ``lax.map`` so memory stays O(block · N)
 instead of O(N²).  The neighbor-list driver (ops/neighbor_list.py) reuses
 the same pair functions on (N, max_neighbors) gathers.
@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..core.box import Box, minimum_image
 

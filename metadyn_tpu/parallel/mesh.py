@@ -6,7 +6,7 @@ decomposition (recalled, SURVEY.md §2b cuFFT/dfft row, §3.3): at the
 reduction must all run on a *partitioned* mesh, or the mesh CV pins the
 whole system onto one chip.
 
-TPU-native re-design (slab decomposition, matching the cell sharding of
+Design (slab decomposition, matching the cell sharding of
 ``parallel.spatial``):
 
 1. **Local CIC assignment with halo columns.**  Each device assigns its
@@ -37,7 +37,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from flax import struct
+from ..utils import struct
 
 from ..core.state import System
 from ..ops.packed import PackedSpec, PackedState

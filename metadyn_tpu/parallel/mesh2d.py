@@ -7,7 +7,7 @@ module pairs with the 2-D ``("spacex", "spacey")`` cell decomposition
 (parallel/spatial2d.py) — without it, Config-5-style S(k) runs are
 pinned to 1-D meshes.
 
-Design (the classic 2-D pencil transpose scheme, TPU-native):
+Design (the classic 2-D pencil transpose scheme):
 
 1. **Local CIC/TSC assignment with 2-D halo shells.**  Each device
    assigns its own (cap, cx_l, cy_l, cz) slot block into a local ρ block
@@ -39,7 +39,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from flax import struct
+from ..utils import struct
 
 from ..core.state import System
 from ..ops.packed import PackedSpec, PackedState

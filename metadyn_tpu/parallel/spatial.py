@@ -7,7 +7,7 @@ migration between ranks (recalled, SURVEY.md §2b Communicator row, §3.1
 the second scaling axis next to data-parallel walkers: it shards the
 PARTICLES (via their cells) so N can grow past one chip's HBM/FLOPs.
 
-TPU-native re-design.  The packed slot layout (cap, cx, cy, cz) is
+Design.  The packed slot layout (cap, cx, cy, cz) is
 sharded along the x cell axis over a ``"space"`` mesh axis; each device
 owns cx/ndev contiguous x-planes.  Two shard_map islands implement the
 halo-structured ops, everything else (integrators, CV reductions, bias
@@ -45,19 +45,16 @@ protocol, so ``MetadSampler`` runs biased MD under the ``"space"`` axis
 unchanged — integrate + ghost exchange + migration + CV psum + hill
 deposit, end-to-end (the reference's full DD step loop, SURVEY.md §3.1).
 
-Why 1-D slabs and not the reference's 3-D sub-boxes: TPU ICI is a
-torus, so a 1-D slab decomposition maps every halo transfer onto a
-single nearest-neighbor ``ppermute`` per side — the cheapest collective
-the fabric offers — and migration needs no corner/edge exchanges (26
-neighbor messages per step in a 3-D MPI decomposition collapse to 2).
-The cost is halo volume: with ``cx`` x-planes over ``ndev`` devices the
-ghost fraction is ``2·ndev/cx`` (≈25% at 1M particles on 8 devices,
-34³ cells), where 3-D sub-boxes would scale it as the surface/volume
-ratio.  For the pod-slice sizes this framework targets (≤ ~32 chips on
-a side of the physical torus) slabs stay ahead on wall clock because
-each exchanged plane is one contiguous (cap, 1, cy, cz) block — no
-gather/pack step, no corner cases; a 2-D/3-D mesh split of the cell
-grid is the natural extension if chip counts ever exceed ``cx``.
+Why 1-D slabs and not the reference's 3-D sub-boxes: a slab
+decomposition needs one ``ppermute`` per side per exchange and no
+corner/edge messages (26 neighbor messages per step in a 3-D MPI
+decomposition collapse to 2), and each exchanged plane is one contiguous
+(cap, 1, cy, cz) block.  The cost is halo volume: with ``cx`` x-planes
+over ``ndev`` devices the ghost fraction is ``2·ndev/cx`` (≈25% at 1M
+particles on 8 devices, 34³ cells), where 3-D sub-boxes would scale it
+as the surface/volume ratio.  A 2-D split of the cell grid
+(parallel/spatial2d.py) is the extension when device counts approach
+``cx``.
 """
 from __future__ import annotations
 
@@ -72,9 +69,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..core.box import Box
 from ..core.packed_engine import PackedEngine, PackedAux
 from ..ops.packed import (
-    PackedSpec, PackedState, packed_lj_force, needs_repack, _scatter_rows,
-    VACANT_X, _frac3, _cart3,
+    PackedSpec, PackedState, needs_repack, _scatter_rows, VACANT_X, _frac3,
+    _cart3,
 )
+from ..ops.packed_triton import pair_force
 
 
 def _shard_map(fn, mesh, in_specs, out_specs, axis_names=None,
@@ -86,36 +84,26 @@ def _shard_map(fn, mesh, in_specs, out_specs, axis_names=None,
     ``axis_names`` become manual here — how the spatial islands run inside
     an outer ``"walkers"`` shard_map (walkers x space product meshes).
 
-    ``check_vma=False`` disables the varying-manual-axes checker — needed
-    when the body contains a ``pallas_call`` (its out_shape avals carry
-    no vma annotation).
+    ``check_vma=False`` is for islands that run the Pallas interpreter
+    (CPU tests): it slices varying operands with unvarying indices, which
+    the varying-axes checker refuses.  Their outputs come back unvarying;
+    :func:`_vary_like` marks them again.
     """
-    if hasattr(jax, "shard_map"):
-        kw = {}
-        if mesh is not None:
-            kw["mesh"] = mesh
-        if axis_names is not None:
-            kw["axis_names"] = frozenset(axis_names)
-        if not check_vma:
-            kw["check_vma"] = False
-        return jax.shard_map(fn, in_specs=in_specs, out_specs=out_specs,
-                             **kw)
-    from jax.experimental.shard_map import shard_map as sm
-    assert mesh is not None and axis_names is None, (
-        "nested/partial-manual shard_map needs jax.shard_map (axis_names)")
-    return sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-              check_rep=check_vma)
+    kw = {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+    if axis_names is not None:
+        kw["axis_names"] = frozenset(axis_names)
+    if not check_vma:
+        kw["check_vma"] = False
+    return jax.shard_map(fn, in_specs=in_specs, out_specs=out_specs, **kw)
 
 
-def _vma_tag(r):
-    """A zero scalar carrying ``r``'s varying-manual-axes type.
-
-    ``pallas_call`` outputs carry no vma annotation (the reason the
-    islands set ``check_vma=False``); inside a NESTED island the outputs
-    would come back replicated over the enclosing walker axis and break
-    the caller's scan-carry typing.  Adding this tag (numerically a
-    no-op) re-imprints the inputs' varying axes."""
-    return 0.0 * r[(0,) * r.ndim]
+def _vary_like(outs, ref):
+    """``outs`` plus a zero carrying ``ref``'s varying mesh axes — for the
+    outputs of a ``check_vma=False`` island nested in a checked one."""
+    tag = 0.0 * ref[(0,) * ref.ndim]
+    return [o + tag for o in outs]
 
 
 def _halo_exchange(plane_lo, plane_hi, axis: str, n_dev: int):
@@ -139,7 +127,8 @@ def _force_attr_names(spec: PackedSpec) -> list[str]:
 
 
 def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
-                          nested: bool = False, pair_pallas: bool = False):
+                          nested: bool = False, pair_path: str = "xla",
+                          with_energy: bool = True, interpret: bool = False):
     """Build ``force(state) -> state`` with the cell grid sharded along x.
 
     ``state`` holds GLOBAL (cap, C)-flat slot arrays; under ``jit`` +
@@ -150,25 +139,13 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
     ``"walkers"`` axis of the same mesh): only ``axis`` goes manual and
     the mesh resolves from the calling context.
 
-    ``pair_pallas=True`` runs the Newton-halved Pallas pair kernel
-    (ops/packed_pallas2) on the halo-extended local grid instead of the
-    XLA roll sweep — the single biggest multi-chip throughput lever
-    (measured round 4: the forced XLA path cost 2.9× at Config-3 scale;
-    the halo overhead itself is ~4%).  Forces only (with_energy=False):
-    every pair is enumerated once; a pair with its i-row in a ghost
-    plane contributes its j-side reaction to the interior and the
-    discarded ghost force is recomputed by the owning neighbor, and the
-    roll-wrapped pairs of the non-periodic extended grid are always
-    ghost↔ghost (interior planes are buffered on both sides), so
-    discarding the ghost planes yields exactly the interior forces.
-    Energy/virial stay on the XLA+cell-mask path (``refresh_energy`` at
-    stride boundaries).  Works nested too (walkers x space product
-    meshes): the island body is walker-local, so the kernel runs
-    unchanged inside the walkers-manual region (round-5; previously the
-    most parallel topology was pinned to the XLA path).
+    ``pair_path`` picks the pair force run on the halo-extended local
+    grid (``ops.packed_triton.pair_force``).  Interior i-cells have all 26
+    neighbour cells inside the extended grid, so their forces are exact;
+    the ghost planes' forces are discarded, and the cell mask keeps ghost
+    i-cells out of the energy/virial sums.  ``with_energy=False`` lets
+    the kernel skip those sums (inner MD steps).
     """
-    if pair_pallas:
-        from ..ops.packed_pallas2 import packed_lj_force_pallas2
     cap, C = spec.cap, spec.n_cells
     cx, cy, cz = spec.cells_per_dim
     n_dev = mesh.shape[axis]
@@ -187,22 +164,6 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
     interior[-1] = 0.0
     interior = jnp.asarray(interior.reshape(-1))
     attr_names = _force_attr_names(spec)
-    # the Pallas kernel reads exactly the columns its mode needs; ship
-    # ONLY those through the halo exchange (lean sentinel Config-3: just
-    # the 3 coordinate columns — 7 → 3 exchanged planes per side).  The
-    # XLA island (energy refreshes) keeps the full column set:
-    # packed_lj_force reads se/hs unconditionally.
-    if pair_pallas:
-        need_pid = spec.has_bonds
-        need_typ = spec.has_pair_table
-        ex_attrs = ([k for k, need in (("se", spec.uniform_eps is None),
-                                       ("hs", spec.uniform_sigma is None))
-                     if need]
-                    + [f"bp{k}" for k in range(spec.bond_slots)
-                       if spec.has_bonds])
-    else:
-        need_pid = need_typ = True
-        ex_attrs = attr_names
 
     def local_force(r, pid, typ, attrs, box_L, shard_ix, *tilt_arg):
         """Per-device body: r (3, cap, C_l), pid/typ (cap, C_l) i32,
@@ -219,17 +180,12 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
         idx = shard_ix[0]
         Lx = box_L[0]
 
-        # one stacked halo exchange for the NEEDED columns only (typ
-        # rides along when a per-type-pair table indexes it in the
-        # kernel — a ghost with typ=0 would silently read row 0 of the
-        # ε/σ tables otherwise; see the ex_attrs plan above)
+        # one stacked halo exchange of every column the pair math reads
+        # (typ too: a ghost with typ=0 would read row 0 of the ε/σ tables)
         npad_ext = cap * (cx_l + 2) * plane
-        cols = [r[d] for d in range(3)]
-        if need_pid:
-            cols.append(pid.astype(jnp.float32))
-        if need_typ:
-            cols.append(typ.astype(jnp.float32))
-        cols += [attrs[k] for k in ex_attrs]
+        cols = ([r[d] for d in range(3)]
+                + [pid.astype(jnp.float32), typ.astype(jnp.float32)]
+                + [attrs[k] for k in attr_names])
         v4 = [c.reshape(cap, cx_l, plane) for c in cols]
         lo = jnp.stack([c[:, 0] for c in v4])        # (W, cap, plane)
         hi = jnp.stack([c[:, -1] for c in v4])
@@ -242,42 +198,25 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
                for i in range(len(cols))]
 
         r_ext = jnp.stack(ext[0:3])
-        i = 3
-        if need_pid:
-            pid_ext = ext[i].astype(jnp.int32).reshape(-1)
-            i += 1
-        else:
-            # unread by the kernel in this mode; keep the vacant value
-            pid_ext = jnp.full(npad_ext, spec.n_real, jnp.int32)
-        if need_typ:
-            typ_ext = ext[i].astype(jnp.int32).reshape(-1)
-            i += 1
-        else:
-            typ_ext = jnp.zeros(npad_ext, jnp.int32)
-        attrs_ext = dict(zip(ex_attrs, ext[i:]))
         st_ext = PackedState(
             r=r_ext.reshape(3, -1), v=jnp.zeros((3, npad_ext)),
             f=jnp.zeros((3, npad_ext)),
             image=jnp.zeros((3, npad_ext), jnp.int32),
             ref_r=r_ext.reshape(3, -1),
-            pid=pid_ext,
-            typ=typ_ext,
+            pid=ext[3].astype(jnp.int32).reshape(-1),
+            typ=ext[4].astype(jnp.int32).reshape(-1),
             slot_of=jnp.zeros(1, jnp.int32),
-            attrs={k: v.reshape(-1) for k, v in attrs_ext.items()},
+            attrs={k: v.reshape(-1) for k, v in zip(attr_names, ext[5:])},
             box=box,
             potential_energy=jnp.float32(0.0),
             virial=jnp.zeros(3, jnp.float32))
-        if pair_pallas:
-            out = packed_lj_force_pallas2(st_ext, spec_ext,
-                                          with_energy=False)
-            e = jnp.float32(0.0)
-            w = jnp.zeros(3, jnp.float32)
-        else:
-            out = packed_lj_force(st_ext, spec_ext, cell_mask=interior)
-            e = jax.lax.psum(out.potential_energy, axis)
-            w = jax.lax.psum(out.virial, axis)
+        out = pair_force(st_ext, spec_ext, pair_path,
+                         with_energy=with_energy, cell_mask=interior,
+                         interpret=interpret)
         # keep interior planes only; reduce the scalars over the ring
         f_loc = out.f.reshape(3, cap, cx_l + 2, plane)[:, :, 1:-1]
+        e = jax.lax.psum(out.potential_energy, axis)
+        w = jax.lax.psum(out.virial, axis)
         return f_loc.reshape(3, cap, C_l), e, w
 
     # the flat slot axis is cap-major/C-minor, so sharding must apply to
@@ -294,7 +233,7 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
                           P(), P(axis)) + ((P(),) if tilted else ()),
                 out_specs=(P(None, None, axis), P(), P()),
                 axis_names=(axis,) if nested else None,
-                check_vma=not pair_pallas,
+                check_vma=not interpret,
             )
         return islands[tilted]
 
@@ -310,292 +249,14 @@ def make_sharded_lj_force(spec: PackedSpec, mesh: Mesh, axis: str = "space",
             {k: state.attrs[k].reshape(cap, C)
              for k in attr_names},
             state.box.L, shard_iota, *extra)
-        if pair_pallas:
-            # check_vma=False islands return replicated-typed outputs;
-            # re-imprint the state's varying axes (see _vma_tag)
-            tag = _vma_tag(state.r)
-            f, e, w = f + tag, e + tag, w + tag
-        return state.replace(f=f.reshape(3, cap * C),
-                             potential_energy=e, virial=w)
+        if interpret:
+            f, e, w = _vary_like((f, e, w), state.r)
+        state = state.replace(f=f.reshape(3, cap * C))
+        if not (with_energy or pair_path == "xla"):
+            return state      # the kernel skipped the scalar sums
+        return state.replace(potential_energy=e, virial=w)
 
     return force
-
-
-def make_sharded_order_parts(cvs, spec: PackedSpec, mesh: Mesh,
-                             axis: str = "space", nested: bool = False):
-    """Pallas order-CV sweeps INSIDE the spatial shard_map island — the
-    DD analog of ``make_fused_order_force(use_pallas=True)`` and the
-    round-4 DD-tax closer (the order sweeps were the last XLA/GSPMD
-    stage of the sharded Config-3 step: 20.15M vs 36.2M ps/s at a
-    1-device mesh).
-
-    Returns ``(values_fn, force_fn)`` with the fused-path contract
-    (sampler.make_bias_force_parts):
-
-      values_fn(state) -> (s_stack, ctx)   # ONE Pallas value traversal
-      force_fn(state, ctx, dVds) -> g      # ONE Pallas force traversal
-
-    Both run on the halo-extended local grid (ghost x-planes via ring
-    ppermute, seam-shifted like the pair islands).  Correctness:
-
-    * **Values** weight every pair by its i-CELL interior mask — the
-      half-offset enumeration assigns a boundary pair the same i cell on
-      both sides of the exchange, so exactly one device counts it; the
-      per-device partials are ``psum``-finished.  Roll-wrapped pairs of
-      the non-periodic extended grid have a ghost i cell (only ox >= 0
-      offsets exist) and are masked out.
-    * **Forces** keep interior planes only: ghost-row forces are
-      discarded and recomputed by the owning neighbor, and the j-side
-      reactions of ghost-i pairs land on interior rows — the same proof
-      as the Pallas pair island (make_sharded_lj_force).
-
-    The stacks are NOT shared between the two traversals (each island
-    re-extends its halo) — one extra (cap, C_l) exchange per eval,
-    measured noise next to the 2.9x sweep win.
-    """
-    from ..ops.packed_order_pallas import (order_values_pallas,
-                                           order_force_pallas)
-    cap, C = spec.cap, spec.n_cells
-    cx, cy, cz = spec.cells_per_dim
-    n_dev = mesh.shape[axis]
-    assert cx % n_dev == 0
-    cx_l = cx // n_dev
-    plane = cy * cz
-    C_l = cx_l * plane
-    spec_ext = spec.replace(cells_per_dim=(cx_l + 2, cy, cz))
-    sentinel = spec.uniform_eps is not None
-    interior = np.zeros((cx_l + 2, plane), np.float32)
-    interior[1:-1] = 1.0
-    interior = jnp.asarray(interior.reshape(-1))
-    n_terms = sum(cv.n_value_terms for cv in cvs)
-    n_aux = sum(cv.aux_size for cv in cvs)
-
-    sentinel = spec.uniform_eps is not None
-
-    def ext_state(r, pid, box_L, idx, tilt=None):
-        """Halo-extend r (3, cap, C_l) + pid (cap, C_l) into a local
-        PackedState on the (cx_l+2, cy, cz) grid (local_force twin).
-        Sentinel layouts skip the pid exchange — the order kernels cull
-        vacancy by the coordinate sentinel alone."""
-        cols = [r[d] for d in range(3)]
-        if not sentinel:
-            cols.append(pid.astype(jnp.float32))
-        v4 = [c.reshape(cap, cx_l, plane) for c in cols]
-        lo = jnp.stack([c[:, 0] for c in v4])
-        hi = jnp.stack([c[:, -1] for c in v4])
-        lh, rh = _halo_exchange(lo, hi, axis, n_dev)
-        lh = lh.at[0].add(jnp.where(idx == 0, -box_L[0], 0.0))
-        rh = rh.at[0].add(jnp.where(idx == n_dev - 1, box_L[0], 0.0))
-        ext = [jnp.concatenate([lh[i][:, None], v4[i], rh[i][:, None]],
-                               axis=1).reshape(cap, -1)
-               for i in range(len(cols))]
-        npad_ext = cap * (cx_l + 2) * plane
-        r_ext = jnp.stack(ext[0:3]).reshape(3, -1)
-        pid_ext = (jnp.full(npad_ext, spec.n_real, jnp.int32) if sentinel
-                   else ext[3].astype(jnp.int32).reshape(-1))
-        return PackedState(
-            r=r_ext, v=jnp.zeros((3, npad_ext)),
-            f=jnp.zeros((3, npad_ext)),
-            image=jnp.zeros((3, npad_ext), jnp.int32),
-            ref_r=r_ext,
-            pid=pid_ext,
-            typ=jnp.zeros(npad_ext, jnp.int32),
-            slot_of=jnp.zeros(1, jnp.int32),
-            attrs={},
-            box=Box(L=box_L, tilt=tilt),
-            potential_energy=jnp.float32(0.0),
-            virial=jnp.zeros(3, jnp.float32))
-
-    def local_values(r, pid, box_L, shard_ix, *tilt_arg):
-        st_ext = ext_state(r, pid, box_L, shard_ix[0],
-                           tilt=tilt_arg[0] if tilt_arg else None)
-        terms, _ = order_values_pallas(st_ext, spec_ext, cvs,
-                                       cell_mask=interior)
-        # structured per-CV terms pytree (leaf shapes differ — Q_l packs
-        # per-m arrays); psum each leaf over the ring
-        return jax.tree.map(lambda x: jax.lax.psum(x, axis), terms)
-
-    def local_force(r, pid, box_L, shard_ix, aux_flat, *tilt_arg):
-        st_ext = ext_state(r, pid, box_L, shard_ix[0],
-                           tilt=tilt_arg[0] if tilt_arg else None)
-        auxs = []
-        i = 0
-        for cv in cvs:
-            auxs.append(cv.aux_from_flat(
-                [aux_flat[i + k] for k in range(cv.aux_size)]))
-            i += cv.aux_size
-        g = order_force_pallas(st_ext, spec_ext, cvs, auxs)
-        g = g.reshape(3, cap, cx_l + 2, plane)[:, :, 1:-1]
-        return g.reshape(3, cap, C_l)
-
-    shard_iota = jnp.arange(n_dev, dtype=jnp.int32)
-    islands = {}
-
-    def get_islands(tilted: bool):
-        if tilted not in islands:
-            t = (P(),) if tilted else ()
-            islands[tilted] = (
-                _shard_map(
-                    local_values, None if nested else mesh,
-                    in_specs=(P(None, None, axis), P(None, axis), P(),
-                              P(axis)) + t,
-                    out_specs=P(),
-                    axis_names=(axis,) if nested else None,
-                    check_vma=False),
-                _shard_map(
-                    local_force, None if nested else mesh,
-                    in_specs=(P(None, None, axis), P(None, axis), P(),
-                              P(axis), P()) + t,
-                    out_specs=P(None, None, axis),
-                    axis_names=(axis,) if nested else None,
-                    check_vma=False))
-        return islands[tilted]
-
-    def values_fn(state: PackedState):
-        tilted = state.box.tilt is not None
-        extra = (state.box.tilt,) if tilted else ()
-        terms = get_islands(tilted)[0](
-            state.r.reshape(3, cap, C),
-            state.pid.reshape(cap, C),
-            state.box.L, shard_iota, *extra)
-        tag = _vma_tag(state.r)       # see _vma_tag
-        terms = jax.tree.map(lambda x: x + tag, terms)
-        s = jnp.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
-        return s, (terms, None)
-
-    def force_fn(state: PackedState, ctx, dVds):
-        terms, _ = ctx
-        auxs = [cv.grad_aux(t, dVds[i])
-                for i, (cv, t) in enumerate(zip(cvs, terms))]
-        flat = []
-        for cv, aux in zip(cvs, auxs):
-            flat.extend(cv.aux_flat(aux))
-        aux_arr = jnp.stack([jnp.asarray(a, jnp.float32) for a in flat])
-        tilted = state.box.tilt is not None
-        extra = (state.box.tilt,) if tilted else ()
-        g = get_islands(tilted)[1](
-            state.r.reshape(3, cap, C),
-            state.pid.reshape(cap, C),
-            state.box.L, shard_iota, aux_arr, *extra)
-        return (g + _vma_tag(state.r)).reshape(3, cap * C)
-
-    assert n_terms <= 128 and n_aux <= 128
-    return values_fn, force_fn
-
-
-def make_sharded_lagged_parts(cvs, spec: PackedSpec, mesh: Mesh,
-                              axis: str = "space", nested: bool = False,
-                              walls=None):
-    """Sharded twin of ``sampler.make_lagged_parts`` — the fully-fused
-    lagged-MTS kernel (ops/packed_fused_pallas) running INSIDE the
-    spatial island, closing the last single-device-only stage of the
-    Config-3 hot path under DD.
-
-    One Pallas traversal on the halo-extended local grid returns the LJ
-    force + the bias force (coefficients lagged one sub-chunk) + fresh
-    CV value sums; forces discard ghost rows (pair-island proof), value
-    sums weight each pair by its i-cell interior mask and are
-    psum-finished.  MONO math mode only — there value and force weights
-    are separate in-kernel, so the interior mask cannot clip the j-side
-    force reactions of ghost-i pairs.
-
-    Returns ``(seed_eval, fused_force)`` with the make_lagged_parts
-    contract; the exact seed evaluation reuses the split order islands.
-    """
-    from ..bias.metad import bias_value_and_grad
-    from ..ops.packed_fused_pallas import fused_lj_order_force
-    assert spec.uniform_eps is not None and spec.uniform_sigma is not None \
-        and not spec.has_bonds, (
-            "sharded mts_lag needs the lean sentinel layout")
-    cap, C = spec.cap, spec.n_cells
-    cx, cy, cz = spec.cells_per_dim
-    n_dev = mesh.shape[axis]
-    assert cx % n_dev == 0
-    cx_l = cx // n_dev
-    plane = cy * cz
-    C_l = cx_l * plane
-    spec_ext = spec.replace(cells_per_dim=(cx_l + 2, cy, cz))
-    interior = np.zeros((cx_l + 2, plane), np.float32)
-    interior[1:-1] = 1.0
-    interior = jnp.asarray(interior.reshape(-1))
-    values_fn, force_fn = make_sharded_order_parts(
-        cvs, spec, mesh, axis, nested=nested)
-
-    def grad_with_walls(bias, s):
-        _, dVds = bias_value_and_grad(bias, s)
-        if walls is not None:
-            _, gw = walls.energy_and_grad(s)
-            dVds = dVds + gw
-        return dVds
-
-    def seed_eval(state, bias):
-        s, ctx = values_fn(state)
-        terms, _ = ctx
-        dVds = grad_with_walls(bias, s)
-        return force_fn(state, ctx, dVds), terms
-
-    def local_fused(r, box_L, shard_ix, auxs, *tilt_arg):
-        """Sentinel layout: only coordinates ride the halo exchange."""
-        idx = shard_ix[0]
-        v4 = [r[d].reshape(cap, cx_l, plane) for d in range(3)]
-        lo = jnp.stack([c[:, 0] for c in v4])
-        hi = jnp.stack([c[:, -1] for c in v4])
-        lh, rh = _halo_exchange(lo, hi, axis, n_dev)
-        lh = lh.at[0].add(jnp.where(idx == 0, -box_L[0], 0.0))
-        rh = rh.at[0].add(jnp.where(idx == n_dev - 1, box_L[0], 0.0))
-        ext = [jnp.concatenate([lh[i][:, None], v4[i], rh[i][:, None]],
-                               axis=1).reshape(cap, -1)
-               for i in range(3)]
-        npad_ext = cap * (cx_l + 2) * plane
-        r_ext = jnp.stack(ext).reshape(3, -1)
-        st_ext = PackedState(
-            r=r_ext, v=jnp.zeros((3, npad_ext)),
-            f=jnp.zeros((3, npad_ext)),
-            image=jnp.zeros((3, npad_ext), jnp.int32),
-            ref_r=r_ext,
-            pid=jnp.zeros(npad_ext, jnp.int32),
-            typ=jnp.zeros(npad_ext, jnp.int32),
-            slot_of=jnp.zeros(1, jnp.int32),
-            attrs={},
-            box=Box(L=box_L, tilt=tilt_arg[0] if tilt_arg else None),
-            potential_energy=jnp.float32(0.0),
-            virial=jnp.zeros(3, jnp.float32))
-        f_lj, g, terms = fused_lj_order_force(
-            st_ext, spec_ext, cvs, auxs, mono=True, cell_mask=interior)
-        cut = lambda a: a.reshape(3, cap, cx_l + 2, plane)[:, :, 1:-1] \
-            .reshape(3, cap, C_l)
-        terms = jax.tree.map(lambda x: jax.lax.psum(x, axis), terms)
-        return cut(f_lj), cut(g), terms
-
-    shard_iota = jnp.arange(n_dev, dtype=jnp.int32)
-    islands = {}
-
-    def get_island(tilted: bool):
-        if tilted not in islands:
-            islands[tilted] = _shard_map(
-                local_fused, None if nested else mesh,
-                in_specs=(P(None, None, axis), P(), P(axis), P())
-                + ((P(),) if tilted else ()),
-                out_specs=(P(None, None, axis), P(None, None, axis), P()),
-                axis_names=(axis,) if nested else None, check_vma=False)
-        return islands[tilted]
-
-    def fused_force(state, bias, terms):
-        s = jnp.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
-        dVds = grad_with_walls(bias, s)
-        auxs = tuple(cv.grad_aux(t, dVds[i])
-                     for i, (cv, t) in enumerate(zip(cvs, terms)))
-        tilted = state.box.tilt is not None
-        extra = (state.box.tilt,) if tilted else ()
-        f, g, terms_new = get_island(tilted)(
-            state.r.reshape(3, cap, C), state.box.L, shard_iota, auxs,
-            *extra)
-        tag = _vma_tag(state.r)       # see _vma_tag
-        terms_new = jax.tree.map(lambda x: x + tag, terms_new)
-        return ((f + tag).reshape(3, cap * C),
-                (g + tag).reshape(3, cap * C), terms_new)
-
-    return seed_eval, fused_force
 
 
 def make_sharded_repack(spec: PackedSpec, mesh: Mesh, axis: str = "space",
@@ -725,6 +386,10 @@ def make_sharded_repack(spec: PackedSpec, mesh: Mesh, axis: str = "space",
                         .reshape(cx_e, cy, cz)
                     base = base + jnp.roll(col_cnt, shift=(oy, oz),
                                            axis=(1, 2))[1 - ox:1 - ox + cx_l]
+                    # one materialization per offset (ops/packed.py
+                    # repack_incremental: compile time on the GPU)
+                    slot_new, base = jax.lax.optimization_barrier(
+                        (slot_new, base))
 
         # --- scatter all columns into the local interior ----------------
         slot = slot_new.reshape(-1)
@@ -824,10 +489,10 @@ class SpatialPackedEngine(PackedEngine):
     def __init__(self, spec: PackedSpec, mesh: Mesh, axis: str = "space",
                  rebuild_every: int = 1, mass: float = 1.0,
                  nested: bool = False, walker_axis: str = "walkers",
-                 pair_pallas: Optional[bool] = None,
+                 pair_path: Optional[str] = None,
                  always_repack: bool = False,
                  with_energy: bool = False,
-                 order_pallas: Optional[bool] = None):
+                 interpret: bool = False):
         """``nested=True`` builds the halo islands for use inside an
         enclosing shard_map over ``walker_axis`` of ``mesh`` (the
         reference's ``mpirun -n W*S --nrank W`` — walker partitions each
@@ -835,87 +500,26 @@ class SpatialPackedEngine(PackedEngine):
         the same mesh to
         :class:`~metadyn_tpu.parallel.walkers.WalkerSampler`.
 
-        ``pair_pallas`` (default: TPU, incl. nested product meshes) runs
-        the inner-step pair force through the Newton-halved Pallas
-        kernel on the halo-extended local grid (see
-        :func:`make_sharded_lj_force`) — closes most of the 2.9× DD tax
-        measured in round 4.  Energy/
-        virial refreshes and the CV sweeps stay on the GSPMD XLA path
-        (``self.use_pallas`` remains False for the order-CV kernels,
-        which are not shard-local).
-
-        ``with_energy=True`` keeps EVERY force call on the XLA sharded
-        path, whose interior-masked energy/virial psum runs per call —
-        the spatial analog of ``PackedEngine(with_energy=True)``,
-        required by SCR-NPT (reads state.virial per step) and the WTE
-        energy CV.  It forces ``pair_pallas`` off (the Pallas inner
-        kernel is forces-only)."""
+        ``pair_path``, ``with_energy`` and ``interpret`` as in
+        :class:`PackedEngine`; the pair force runs on the halo-extended
+        local grid (:func:`make_sharded_lj_force`)."""
         super().__init__(spec, rebuild_every=rebuild_every,
-                         use_pallas=False, mass=mass,
-                         always_repack=always_repack)
+                         pair_path=pair_path, mass=mass,
+                         with_energy=with_energy,
+                         always_repack=always_repack, interpret=interpret)
         self.mesh = mesh
         self.axis = axis
         self._nested_islands = nested
         self._walker_axis = walker_axis
-        if pair_pallas is None:
-            pair_pallas = (jax.default_backend() == "tpu"
-                           and spec.pair_kind == "lj")
-        if with_energy:
-            pair_pallas = False
-        self.pair_pallas = pair_pallas
-        # the XLA sharded path psums interior-masked energy/virial on
-        # every call; the Pallas inner kernel is forces-only (round-4
-        # advisor: a library caller wiring SCR-NPT or an energy CV onto a
-        # pair_pallas engine must fail loudly, not read zeros)
-        self.virial_live = self.energy_live = not pair_pallas
-        sharded_force = make_sharded_lj_force(spec, mesh, axis,
-                                              nested=nested,
-                                              pair_pallas=pair_pallas)
-        sharded_force_e = (make_sharded_lj_force(spec, mesh, axis,
-                                                 nested=nested)
-                           if pair_pallas else sharded_force)
+        build = lambda e: make_sharded_lj_force(
+            spec, mesh, axis, nested=nested, pair_path=self.pair_path,
+            with_energy=e, interpret=interpret)
+        sharded_force = build(with_energy)
+        sharded_force_e = build(True)
         self._sharded_repack = make_sharded_repack(spec, mesh, axis,
                                                    nested=nested)
         self._force = lambda st, sp: sharded_force(st)
         self._force_e = lambda st, sp: sharded_force_e(st)
-        # order-CV sweeps as Pallas islands on the halo-extended grid
-        # (make_sharded_order_parts) — the sampler's fused path asks for
-        # them via make_order_parts; default on TPU (the XLA/GSPMD roll
-        # sweep was the last 1.8x of the round-4 DD tax)
-        if order_pallas is None:
-            order_pallas = jax.default_backend() == "tpu"
-        self.order_pallas = order_pallas
-
-    def make_order_parts(self, cvs):
-        """(values_fn, force_fn) for the sampler's fused order-CV path,
-        running the Pallas sweeps inside the spatial island — or None to
-        keep the GSPMD roll sweep."""
-        if not self.order_pallas:
-            return None
-        return make_sharded_order_parts(
-            list(cvs), self.spec, self.mesh, self.axis,
-            nested=self._nested_islands)
-
-    def make_lagged_parts(self, cvs, walls=None):
-        """(seed_eval, fused_force) for ``MetadSampler(mts_lag=True)``
-        under spatial DD (make_sharded_lagged_parts) — or None when the
-        layout/CV combination is unsupported, in which case the sampler
-        falls back to plain bias_every MTS."""
-        spec = self.spec
-        if not (self.order_pallas
-                and spec.uniform_eps is not None
-                and spec.uniform_sigma is not None
-                and not spec.has_bonds
-                and len(cvs) > 0
-                and all(hasattr(cv, "pair_value_terms_flat")
-                        and hasattr(cv, "pair_grad_terms") for cv in cvs)
-                and all((not getattr(cv, "sphere_poly", False))
-                        or hasattr(cv, "mono_force_vecs") for cv in cvs)
-                and not any(hasattr(cv, "bias_virial") for cv in cvs)):
-            return None
-        return make_sharded_lagged_parts(
-            list(cvs), spec, self.mesh, self.axis,
-            nested=self._nested_islands, walls=walls)
 
     def rebuild(self, state: PackedState, aux: PackedAux):
         # the repack decision is a GLOBAL scalar (max displacement over

@@ -8,18 +8,18 @@ fraction ``2·ndev/cx``.  This module is the named natural extension
 shards the x and y cell axes, so N_dev scales to ``cx·cy`` and the ghost
 fraction falls toward the surface/volume ratio.
 
-TPU-native design, same invariants as the 1-D module:
+Same invariants as the 1-D module:
 
 * **Two-hop halo exchange.**  x-halos first (one ``ppermute`` per side
   over ``spacex``), then y-halos of the x-EXTENDED arrays (over
   ``spacey``) — the second hop carries the corner ghosts, so no separate
   corner messages exist (the 26-message 3-D MPI pattern collapses to 4
   nearest-neighbor permutes).
-* **Force** = the unmodified 27-offset roll kernel on the
+* **Force** = the unmodified pair force (either pair path) on the
   (cx_l+2, cy_l+2, cz) extended local grid with ghost cells masked out
   of the scalars.  Interior cells are buffered on both sharded axes, so
-  every roll-wrapped pair of the (non-periodic) extended grid is
-  ghost↔ghost and discarded — the same proof as the 1-D slab.
+  every periodic-wrapped pair of the (non-periodic) extended grid has a
+  ghost i-cell and is discarded — the same proof as the 1-D slab.
 * **Migration** = the sort-free 27-offset arrival ranking on the
   extended grid, keeping interior arrivals only; ownership hands off
   through the ghost layer with seam shifts (±L, paired image updates)
@@ -27,8 +27,7 @@ TPU-native design, same invariants as the 1-D module:
   enumeration order matches ``ops.packed.repack_incremental``, so slot
   assignment is bit-identical to the single-device repack.
 
-z stays unsharded (it is the lane-minor axis of the packed layout — the
-cheap axis to keep local).  Orthorhombic only, like the 1-D module.
+z stays unsharded.  Orthorhombic only.
 """
 from __future__ import annotations
 
@@ -43,10 +42,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..core.box import Box
 from ..core.packed_engine import PackedEngine, PackedAux
 from ..ops.packed import (
-    PackedSpec, PackedState, packed_lj_force, needs_repack, _scatter_rows,
-    VACANT_X,
+    PackedSpec, PackedState, needs_repack, _scatter_rows, VACANT_X,
 )
-from .spatial import _force_attr_names, _shard_map, _vma_tag
+from ..ops.packed_triton import pair_force
+from .spatial import _force_attr_names, _shard_map, _vary_like
 
 
 def _ring(n_dev: int):
@@ -78,8 +77,9 @@ def _seam_add(ext, comp: int, plane_slice, amount):
 
 def make_sharded_lj_force_2d(spec: PackedSpec, mesh: Mesh,
                              axes=("spacex", "spacey"),
-                             nested: bool = False,
-                             pair_pallas: bool = False):
+                             nested: bool = False, pair_path: str = "xla",
+                             with_energy: bool = True,
+                             interpret: bool = False):
     """``force(state) -> state`` with the cell grid sharded over x and y.
 
     Same contract as :func:`parallel.spatial.make_sharded_lj_force`
@@ -88,15 +88,9 @@ def make_sharded_lj_force_2d(spec: PackedSpec, mesh: Mesh,
 
     ``nested=True`` builds the island for use INSIDE an enclosing
     shard_map (walkers x 2-D space): only ``axes`` go manual and the mesh
-    resolves from the calling context.  ``pair_pallas=True`` runs the
-    Newton-halved Pallas kernel (ops/packed_pallas2) on the halo-extended
-    local grid, forces only — the same ghost↔ghost discard proof as the
-    1-D slab (interior cells are buffered on BOTH sharded axes, so every
-    roll-wrapped pair of the non-periodic extended grid is ghost↔ghost);
-    energy/virial refreshes stay on the masked XLA path.
+    resolves from the calling context.  ``pair_path``, ``with_energy``
+    and ``interpret`` as in the 1-D builder.
     """
-    if pair_pallas:
-        from ..ops.packed_pallas2 import packed_lj_force_pallas2
     ax, ay = axes
     cap, C = spec.cap, spec.n_cells
     cx, cy, cz = spec.cells_per_dim
@@ -176,15 +170,11 @@ def make_sharded_lj_force_2d(spec: PackedSpec, mesh: Mesh,
             box=Box(L=box_L),
             potential_energy=jnp.float32(0.0),
             virial=jnp.zeros(3, jnp.float32))
-        if pair_pallas:
-            out = packed_lj_force_pallas2(st_ext, spec_ext,
-                                          with_energy=False)
-            e = jnp.float32(0.0)
-            w = jnp.zeros(3, jnp.float32)
-        else:
-            out = packed_lj_force(st_ext, spec_ext, cell_mask=interior)
-            e = jax.lax.psum(out.potential_energy, (ax, ay))
-            w = jax.lax.psum(out.virial, (ax, ay))
+        out = pair_force(st_ext, spec_ext, pair_path,
+                         with_energy=with_energy, cell_mask=interior,
+                         interpret=interpret)
+        e = jax.lax.psum(out.potential_energy, (ax, ay))
+        w = jax.lax.psum(out.virial, (ax, ay))
         f_loc = out.f.reshape(3, cap, cx_e, cy_e, cz)[:, :, 1:-1, 1:-1]
         return f_loc, e, w
 
@@ -196,7 +186,7 @@ def make_sharded_lj_force_2d(spec: PackedSpec, mesh: Mesh,
                   P(), P(ax), P(ay)),
         out_specs=(P(None, None, ax, ay, None), P(), P()),
         axis_names=(ax, ay) if nested else None,
-        check_vma=not pair_pallas,
+        check_vma=not interpret,
     )
     iota_x = jnp.arange(n_x, dtype=jnp.int32)
     iota_y = jnp.arange(n_y, dtype=jnp.int32)
@@ -210,134 +200,14 @@ def make_sharded_lj_force_2d(spec: PackedSpec, mesh: Mesh,
             {k: state.attrs[k].reshape(cap, cx, cy, cz)
              for k in attr_names},
             state.box.L, iota_x, iota_y)
-        if pair_pallas:
-            # check_vma=False islands return replicated-typed outputs;
-            # re-imprint the state's varying axes (parallel/spatial.py)
-            tag = _vma_tag(state.r)
-            f, e, w = f + tag, e + tag, w + tag
-        return state.replace(f=f.reshape(3, cap * C),
-                             potential_energy=e, virial=w)
+        if interpret:
+            f, e, w = _vary_like((f, e, w), state.r)
+        state = state.replace(f=f.reshape(3, cap * C))
+        if not (with_energy or pair_path == "xla"):
+            return state      # the kernel skipped the scalar sums
+        return state.replace(potential_energy=e, virial=w)
 
     return force
-
-
-def make_sharded_order_parts_2d(cvs, spec: PackedSpec, mesh: Mesh,
-                                axes=("spacex", "spacey"),
-                                nested: bool = False):
-    """Pallas order-CV sweeps inside the 2-D spatial island — the 2-D
-    twin of ``parallel.spatial.make_sharded_order_parts`` (same fused-
-    path contract and the same two correctness arguments: interior-cell
-    pair masking + psum for values, ghost-discard for forces), with the
-    two-hop corner-carrying halo extension of this module."""
-    from ..ops.packed_order_pallas import (order_values_pallas,
-                                           order_force_pallas)
-    ax, ay = axes
-    cap, C = spec.cap, spec.n_cells
-    cx, cy, cz = spec.cells_per_dim
-    n_x, n_y = mesh.shape[ax], mesh.shape[ay]
-    assert cx % n_x == 0 and cy % n_y == 0
-    cx_l, cy_l = cx // n_x, cy // n_y
-    cx_e, cy_e = cx_l + 2, cy_l + 2
-    C_l = cx_l * cy_l * cz
-    spec_ext = spec.replace(cells_per_dim=(cx_e, cy_e, cz))
-    interior = np.zeros((cx_e, cy_e, cz), np.float32)
-    interior[1:-1, 1:-1, :] = 1.0
-    interior = jnp.asarray(interior.reshape(-1))
-
-    def ext_state(r, pid, box_L, ix, iy):
-        cols = [r[d] for d in range(3)] + [pid.astype(jnp.float32)]
-        v = jnp.stack([c.reshape(cap, cx_l, cy_l, cz) for c in cols])
-        ext = _ext_columns(v, box_L, ix, iy, ax, ay, n_x, n_y,
-                           x_comp=0, y_comp=1)
-        npad_ext = cap * cx_e * cy_e * cz
-        r_ext = jnp.stack([ext[d].reshape(cap, -1) for d in range(3)]) \
-            .reshape(3, -1)
-        return PackedState(
-            r=r_ext, v=jnp.zeros((3, npad_ext)),
-            f=jnp.zeros((3, npad_ext)),
-            image=jnp.zeros((3, npad_ext), jnp.int32),
-            ref_r=r_ext,
-            pid=ext[3].astype(jnp.int32).reshape(-1),
-            typ=jnp.zeros(npad_ext, jnp.int32),
-            slot_of=jnp.zeros(1, jnp.int32),
-            attrs={},
-            box=Box(L=box_L),
-            potential_energy=jnp.float32(0.0),
-            virial=jnp.zeros(3, jnp.float32))
-
-    def local_values(r, pid, box_L, six, siy):
-        st_ext = ext_state(r, pid, box_L, six[0], siy[0])
-        terms, _ = order_values_pallas(st_ext, spec_ext, cvs,
-                                       cell_mask=interior)
-        return jax.tree.map(lambda x: jax.lax.psum(x, (ax, ay)), terms)
-
-    def local_force(r, pid, box_L, six, siy, aux_flat):
-        st_ext = ext_state(r, pid, box_L, six[0], siy[0])
-        auxs = []
-        i = 0
-        for cv in cvs:
-            auxs.append(cv.aux_from_flat(
-                [aux_flat[i + k] for k in range(cv.aux_size)]))
-            i += cv.aux_size
-        g = order_force_pallas(st_ext, spec_ext, cvs, auxs)
-        g = g.reshape(3, cap, cx_e, cy_e, cz)[:, :, 1:-1, 1:-1]
-        return g.reshape(3, cap, cx_l, cy_l, cz)
-
-    iota_x = jnp.arange(n_x, dtype=jnp.int32)
-    iota_y = jnp.arange(n_y, dtype=jnp.int32)
-    values_island = _shard_map(
-        local_values, None if nested else mesh,
-        in_specs=(P(None, None, ax, ay, None), P(None, ax, ay, None),
-                  P(), P(ax), P(ay)),
-        out_specs=P(),
-        axis_names=(ax, ay) if nested else None, check_vma=False)
-    force_island = _shard_map(
-        local_force, None if nested else mesh,
-        in_specs=(P(None, None, ax, ay, None), P(None, ax, ay, None),
-                  P(), P(ax), P(ay), P()),
-        out_specs=P(None, None, ax, ay, None),
-        axis_names=(ax, ay) if nested else None, check_vma=False)
-
-    def values_fn(state: PackedState):
-        terms = values_island(state.r.reshape(3, cap, cx, cy, cz),
-                              state.pid.reshape(cap, cx, cy, cz),
-                              state.box.L, iota_x, iota_y)
-        tag = _vma_tag(state.r)       # see parallel/spatial._vma_tag
-        terms = jax.tree.map(lambda x: x + tag, terms)
-        s = jnp.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
-        return s, (terms, None)
-
-    def force_fn(state: PackedState, ctx, dVds):
-        terms, _ = ctx
-        auxs = [cv.grad_aux(t, dVds[i])
-                for i, (cv, t) in enumerate(zip(cvs, terms))]
-        flat = []
-        for cv, aux in zip(cvs, auxs):
-            flat.extend(cv.aux_flat(aux))
-        aux_arr = jnp.stack([jnp.asarray(a, jnp.float32) for a in flat])
-        g = force_island(state.r.reshape(3, cap, cx, cy, cz),
-                         state.pid.reshape(cap, cx, cy, cz),
-                         state.box.L, iota_x, iota_y, aux_arr)
-        return (g + _vma_tag(state.r)).reshape(3, cap * C)
-
-    return values_fn, force_fn
-
-
-def _ext_columns(v, box_L, ix, iy, ax, ay, n_x, n_y,
-                 x_comp=None, y_comp=None):
-    """Two-hop halo extension of stacked (W, cap, cx_l, cy_l, cz) columns
-    with seam shifts on the coordinate components (no image fixups —
-    force/CV paths only; migration has its own richer variant)."""
-    lh, rh = _exchange_axis(v, 2, ax, n_x)
-    if x_comp is not None:
-        lh = lh.at[x_comp].add(jnp.where(ix == 0, -box_L[0], 0.0))
-        rh = rh.at[x_comp].add(jnp.where(ix == n_x - 1, box_L[0], 0.0))
-    v = jnp.concatenate([lh, v, rh], axis=2)
-    lh, rh = _exchange_axis(v, 3, ay, n_y)
-    if y_comp is not None:
-        lh = lh.at[y_comp].add(jnp.where(iy == 0, -box_L[1], 0.0))
-        rh = rh.at[y_comp].add(jnp.where(iy == n_y - 1, box_L[1], 0.0))
-    return jnp.concatenate([lh, v, rh], axis=3)
 
 
 def make_sharded_repack_2d(spec: PackedSpec, mesh: Mesh,
@@ -445,6 +315,10 @@ def make_sharded_repack_2d(spec: PackedSpec, mesh: Mesh,
                         .reshape(cx_e, cy_e, cz)
                     base = base + jnp.roll(col_cnt, shift=oz, axis=2)[
                         1 - ox:1 - ox + cx_l, 1 - oy:1 - oy + cy_l]
+                    # one materialization per offset (ops/packed.py
+                    # repack_incremental: compile time on the GPU)
+                    slot_new, base = jax.lax.optimization_barrier(
+                        (slot_new, base))
 
         slot = slot_new.reshape(-1)
         out = _scatter_rows([c.reshape(-1) for c in ext], slot, n_pad_l)
@@ -541,61 +415,31 @@ class SpatialPackedEngine2D(PackedEngine):
                  axes=("spacex", "spacey"), rebuild_every: int = 1,
                  mass: float = 1.0, always_repack: bool = False,
                  nested: bool = False, walker_axis: str = "walkers",
-                 pair_pallas: Optional[bool] = None,
+                 pair_path: Optional[str] = None,
                  with_energy: bool = False,
-                 order_pallas: Optional[bool] = None):
+                 interpret: bool = False):
         """``nested=True`` builds the halo islands for use inside an
         enclosing shard_map over ``walker_axis`` (walkers x 2-D space —
         pass the full 3-axis product mesh here and the same mesh to
-        ``WalkerSampler``).
-
-        ``pair_pallas`` (default: TPU, LJ pair kind, not nested) runs the
-        inner-step pair force through the Newton-halved Pallas kernel on
-        the halo-extended local grid (see
-        :func:`make_sharded_lj_force_2d`); energy/virial refreshes stay
-        on the masked XLA path.  ``with_energy=True`` keeps EVERY force
-        call on the XLA path (live per-step energy/virial — SCR-NPT, WTE)
-        and forces ``pair_pallas`` off, mirroring the 1-D engine."""
+        ``WalkerSampler``).  ``pair_path``, ``with_energy`` and
+        ``interpret`` as in :class:`PackedEngine`."""
         super().__init__(spec, rebuild_every=rebuild_every,
-                         use_pallas=False, mass=mass,
-                         always_repack=always_repack)
+                         pair_path=pair_path, mass=mass,
+                         with_energy=with_energy,
+                         always_repack=always_repack, interpret=interpret)
         self.mesh = mesh
         self.axes = axes
         self._nested_islands = nested
         self._walker_axis = walker_axis
-        if pair_pallas is None:
-            pair_pallas = (jax.default_backend() == "tpu"
-                           and spec.pair_kind == "lj")
-        if with_energy:
-            pair_pallas = False
-        self.pair_pallas = pair_pallas
-        # see parallel/spatial.py: loud-check flag for per-step
-        # energy/virial consumers
-        self.virial_live = self.energy_live = not pair_pallas
-        sharded_force = make_sharded_lj_force_2d(spec, mesh, axes,
-                                                 nested=nested,
-                                                 pair_pallas=pair_pallas)
-        sharded_force_e = (make_sharded_lj_force_2d(spec, mesh, axes,
-                                                    nested=nested)
-                           if pair_pallas else sharded_force)
+        build = lambda e: make_sharded_lj_force_2d(
+            spec, mesh, axes, nested=nested, pair_path=self.pair_path,
+            with_energy=e, interpret=interpret)
+        sharded_force = build(with_energy)
+        sharded_force_e = build(True)
         self._sharded_repack = make_sharded_repack_2d(spec, mesh, axes,
                                                       nested=nested)
         self._force = lambda st, sp: sharded_force(st)
         self._force_e = lambda st, sp: sharded_force_e(st)
-        # Pallas order-CV islands (make_sharded_order_parts_2d); same
-        # default/mechanism as the 1-D engine
-        if order_pallas is None:
-            order_pallas = jax.default_backend() == "tpu"
-        self.order_pallas = order_pallas
-
-    def make_order_parts(self, cvs):
-        """(values_fn, force_fn) for the sampler's fused order-CV path
-        (parallel/spatial.py parity)."""
-        if not self.order_pallas:
-            return None
-        return make_sharded_order_parts_2d(
-            list(cvs), self.spec, self.mesh, self.axes,
-            nested=self._nested_islands)
 
     def rebuild(self, state: PackedState, aux: PackedAux):
         need = (jnp.asarray(True) if self.always_repack

@@ -4,10 +4,10 @@ Reference parity: HOOMD MPI partitions (``--nrank``) running independent
 replicas that share ONE bias grid, allreduced at every deposition stride
 (SURVEY.md §2b, §3.1 "multiple walkers: MPI_Allreduce(grid delta)").
 
-TPU-native re-design (BASELINE.json:10, SURVEY.md §7 P6): one walker per
-chip on a ``Mesh`` axis ``"walkers"``; the whole stride chunk (MD scan +
-CV + hill field) runs under ``shard_map``; the grid delta is a single
-``psum`` over the walker axis riding ICI.  Each walker computes its
+Design (BASELINE.json:10, SURVEY.md §7 P6): one walker per device on a
+``Mesh`` axis ``"walkers"``; the whole stride chunk (MD scan + CV + hill
+field) runs under ``shard_map``; the grid delta is a single ``psum`` over
+the walker axis.  Each walker computes its
 well-tempered hill height against the *pre-stride* grid — exactly the
 reference's partition semantics — then all deltas are applied at once.
 
@@ -32,23 +32,7 @@ from ..io.hill_log import HillLog
 from ..sampler import (
     cv_stack, make_biased_force, make_bias_force_parts, _CallableEngine,
 )
-
-
-def _shard_map(fn, mesh, in_specs, out_specs, axis_names=None):
-    """shard_map; ``axis_names`` selects partial-manual axes (used when
-    ``mesh`` carries more axes than ``"walkers"`` — the walkers x space
-    product, where ``"space"`` stays auto here and goes manual inside the
-    spatial engine's nested islands)."""
-    if hasattr(jax, "shard_map"):
-        kw = {}
-        if axis_names is not None:
-            kw["axis_names"] = frozenset(axis_names)
-        return jax.shard_map(fn, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, **kw)
-    from jax.experimental.shard_map import shard_map as sm
-    assert axis_names is None, (
-        "partial-manual shard_map needs jax.shard_map (axis_names)")
-    return sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+from .spatial import _shard_map
 
 
 def _nearest_node(spec: GridSpec, s):

@@ -1,8 +1,8 @@
 """Tracing / profiling helpers.
 
 Reference parity: HOOMD's ``Profiler`` push/pop scopes and per-kernel
-``Autotuner`` timing (SURVEY.md §5 tracing/profiling).  On TPU the XLA
-compiler autotunes; what remains useful is (a) named phases visible in
+``Autotuner`` timing (SURVEY.md §5 tracing/profiling).  XLA autotunes
+itself; what remains useful is (a) named phases visible in
 TensorBoard/Perfetto traces, (b) wall-clock step-rate counters, and (c) a
 one-call trace capture around any run segment.
 

@@ -523,33 +523,34 @@ def test_cli_triclinic_packed(tmp_path):
     assert len(rows) >= 2  # header + >=1 hill deposited in the tilted box
 
 
-def test_cli_want_lag_gating(capsys):
-    """cli._want_lag: mts_lag engages ONLY for bias_every>1 on a lag-capable
-    engine/CV combination, and falls back (with a stderr note, never an
-    exception) otherwise — the YAML knob must be safe to leave on in
-    configs that also run on CPU."""
-    import jax
-    import jax.numpy as jnp
-    from metadyn_tpu.cli import _want_lag
-    from metadyn_tpu.core.packed_engine import PackedEngine
-    from metadyn_tpu.ops.packed import PackedSpec
-    from metadyn_tpu.cv.packed_order import PackedCoordination
+@pytest.mark.parametrize("section,key", [
+    ("metadynamics", "mts_lag"), ("engine", "pair_pallas"),
+    ("engine", "order_pallas")])
+def test_cli_want_lag_gating(section, key):
+    """Keys of removed modes (the lagged fused MTS, the per-kernel Pallas
+    switches) fail at build time with a message naming the key, instead
+    of being silently ignored."""
+    from metadyn_tpu.cli import build_sampler
+    cfg = {"system": {"init": {"kind": "sc", "n_per_side": 4,
+                               "spacing": 1.5}},
+           "engine": {"kind": "packed"},
+           "cvs": [{"name": "x", "kind": "lamellar", "lattice_vector": [0, 0, 1],
+                    "grid": {"min": -1.0, "max": 1.0, "num_points": 16,
+                             "sigma": 0.1}}],
+           "metadynamics": {"W": 0.1, "stride": 10}}
+    cfg[section][key] = True
+    with pytest.raises(ValueError, match=f"{section}.{key}"):
+        build_sampler(cfg)
 
-    spec = PackedSpec.create(12.0, 256, r_cut=2.5, skin=0.4, cap=32,
-                             uniform_sigma=1.0, uniform_eps=1.0)
-    eng_pallas = PackedEngine(spec, use_pallas=True)
-    eng_xla = PackedEngine(spec, use_pallas=False)
-    cvs = [PackedCoordination(spec=spec, r0=1.3, r_cut=1.9, name="co")]
 
-    assert _want_lag({"mts_lag": True, "bias_every": 10}, eng_pallas, cvs)
-    # off by default
-    assert not _want_lag({"bias_every": 10}, eng_pallas, cvs)
-    # needs bias_every > 1
-    assert not _want_lag({"mts_lag": True, "bias_every": 1}, eng_pallas, cvs)
-    assert "bias_every" in capsys.readouterr().err
-    # XLA-path engine (the CPU default): falls back with a note
-    assert not _want_lag({"mts_lag": True, "bias_every": 10}, eng_xla, cvs)
-    assert "falling back" in capsys.readouterr().err
+def test_cli_reads_json_config(tmp_path):
+    """cli.load_config: .json configs load with the standard library."""
+    import json
+    from metadyn_tpu.cli import load_config
+    cfg = {"engine": {"kind": "packed"}, "run": {"n_steps": 10}}
+    p = tmp_path / "c.json"
+    p.write_text(json.dumps(cfg))
+    assert load_config(str(p)) == cfg
 
 
 def test_cli_mesh_assign_tsc(tmp_path):
@@ -615,7 +616,7 @@ def test_cli_npt_wte_under_spatial_dd(tmp_path):
         output={"hill_file": str(tmp_path / "HILLS")})
     sampler, _ = build_sampler(cfg)
     assert isinstance(sampler.engine, SpatialPackedEngine)
-    assert not sampler.engine.pair_pallas
+    assert sampler.engine.pair_path == "xla" and sampler.engine.virial_live
     hist = sampler.run(20)
     m = hist[-1]
     assert np.isfinite(np.asarray(m["cv"])).all()

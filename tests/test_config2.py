@@ -76,7 +76,7 @@ def test_config2_diblock_wt_mtd_end_to_end(n_steps):
 
     spec = PackedSpec.create(L, n, r_cut=2 ** (1 / 6), skin=0.5, cap=16,
                              fene_k=30.0, fene_r0=1.5)
-    engine = PackedEngine(spec, use_pallas=False)
+    engine = PackedEngine(spec, pair_path="xla")
     cv = PackedMesh.create((12, 12, 12), L, n_real=n, k0=k0, width=0.3)
     st, ovf = engine.pack_state(
         pos, box, jnp.asarray(types), eps_i=jnp.ones(n), sigma_i=jnp.ones(n),

@@ -76,7 +76,7 @@ def test_config3_2d_cv_mtd_runs(n_steps, n_hills, marker):
     forces through both CVs — the Config-3 capability slice."""
     pos, n, L, box, spec, st = _packed_fcc(ncell=6, a=1.75)
     system = make_system(n)
-    engine = PackedEngine(spec, use_pallas=False)
+    engine = PackedEngine(spec, pair_path="xla")
     st, aux0 = engine.init(st)
     nn = 1.75 / np.sqrt(2)
     q6 = PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6")

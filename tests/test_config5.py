@@ -1,6 +1,6 @@
 """Config 5 shape (BASELINE.json:11): flux-tempered MTD on a block-copolymer
 melt with the packed engine + distance-triggered repack (small CPU slice;
-the 1M-particle scale run is exercised on TPU — see bench notes)."""
+the 1M-particle scale run is examples/config5_flux_1m.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +32,7 @@ def test_config5_flux_tempered_packed_melt():
     system = make_system(n, types=types, bonds=bonds)
     spec = PackedSpec.create(L, n, r_cut=2 ** (1 / 6), skin=0.5, cap=16,
                              fene_k=30.0, fene_r0=1.5)
-    engine = PackedEngine(spec, use_pallas=False)
+    engine = PackedEngine(spec, pair_path="xla")
     cv = PackedMesh.create((12, 12, 12), L, n_real=n, k0=2 * np.pi / L,
                            width=0.3)
     st, ovf = engine.pack_state(

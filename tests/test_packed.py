@@ -1,5 +1,6 @@
 """Packed cell-engine tests: 27-offset roll force vs all-pairs oracle,
-pack/repack slot bookkeeping, and the Pallas kernel in interpret mode."""
+pack/repack slot bookkeeping, and the Triton pair kernel in interpret
+mode."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +14,12 @@ from metadyn_tpu.ops.packed import (
 from metadyn_tpu.ops.pairs import lj_tables, lj_kernel, all_pairs_force
 from metadyn_tpu.utils.lattice import fcc_lattice
 from metadyn_tpu.integrate.packed import make_packed_langevin_step
+from metadyn_tpu.ops.packed_triton import packed_lj_force_triton
+
+
+def _kernel(st, spec, **kw):
+    """The Triton pair kernel through the Pallas interpreter."""
+    return packed_lj_force_triton(st, spec, interpret=True, **kw)
 
 
 def _fcc_case(ncell=6, a=1.7, r_cut=2.5):
@@ -90,26 +97,17 @@ def test_repack_preserves_physics():
 
 
 def test_packed_pallas_interpret_matches_xla():
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas as pp
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    pp.pl.pallas_call = patched
-    try:
-        pos, n, box, spec, st, ovf = _fcc_case()
-        a = packed_lj_force(st, spec)
-        b = pp.packed_lj_force_pallas(st, spec)
-        np.testing.assert_allclose(float(a.potential_energy),
-                                   float(b.potential_energy), rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
-                                   rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(a.virial), np.asarray(b.virial), rtol=1e-4)
-    finally:
-        pp.pl.pallas_call = orig
+    """The Triton pair kernel (interpret mode) == the XLA roll sweep:
+    forces, energy and virial."""
+    pos, n, box, spec, st, ovf = _fcc_case()
+    a = packed_lj_force(st, spec)
+    b = _kernel(st, spec)
+    np.testing.assert_allclose(float(a.potential_energy),
+                               float(b.potential_energy), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(a.virial), np.asarray(b.virial),
+                               rtol=1e-4)
 
 
 @pytest.mark.smoke
@@ -141,26 +139,26 @@ def test_packed_langevin_equilibrates(key):
 
 
 def test_packed_pallas2_interpret_matches_xla():
-    """Newton-halved kernel (packed_pallas2) vs the full-sweep oracle."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas2 as pp2
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        pos, n, box, spec, st, ovf = _fcc_case()
-        a = packed_lj_force(st, spec)
-        b = pp2.packed_lj_force_pallas2(st, spec)
-        np.testing.assert_allclose(float(a.potential_energy),
-                                   float(b.potential_energy), rtol=1e-4)
-        np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
-                                   rtol=1e-3, atol=1e-3)
-        np.testing.assert_allclose(np.asarray(a.virial), np.asarray(b.virial), rtol=1e-3)
-        # force-only mode: same forces, energy skipped
-        c = pp2.packed_lj_force_pallas2(st, spec, with_energy=False)
-        np.testing.assert_allclose(np.asarray(b.f), np.asarray(c.f),
-                                   rtol=1e-5, atol=1e-5)
-    finally:
-        pp2.pl.pallas_call = orig
+    """Kernel vs the full-sweep oracle on a jiggled lattice, and the
+    force-only mode: same forces, the state's scalars left untouched."""
+    pos, n, box, spec, st, ovf = _fcc_case()
+    rng = np.random.default_rng(1)
+    st = st.replace(r=st.r + jnp.asarray(
+        rng.normal(0, 0.05, st.r.shape).astype(np.float32))
+        * (st.pid < n)[None, :])
+    a = packed_lj_force(st, spec)
+    b = _kernel(st, spec)
+    np.testing.assert_allclose(float(a.potential_energy),
+                               float(b.potential_energy), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(a.virial), np.asarray(b.virial),
+                               rtol=1e-3)
+    st0 = st.replace(potential_energy=jnp.float32(123.0))
+    c = _kernel(st0, spec, with_energy=False)
+    np.testing.assert_allclose(np.asarray(b.f), np.asarray(c.f),
+                               rtol=1e-5, atol=1e-5)
+    assert float(c.potential_energy) == 123.0
 
 
 def test_packed_cv_analytic_bias_force_matches_vjp():
@@ -203,11 +201,9 @@ def test_packed_cv_analytic_bias_force_matches_vjp():
 
 @pytest.mark.smoke
 def test_packed_pallas2_uniform_sigma_matches_general():
-    """The uniform-sigma lean kernel (no hs stacks, const sig, eps>0 gate)
+    """The uniform-sigma lean kernel (no hs column, const sig, eps>0 gate)
     must match the general kernel exactly, including on a state where
     vacant slots have drifted off the origin (the 0*inf=NaN regime)."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas2 as pp2
     from metadyn_tpu.utils.lattice import fcc_lattice
     rng = np.random.default_rng(7)
     a_lat = 1.7
@@ -217,23 +213,18 @@ def test_packed_pallas2_uniform_sigma_matches_general():
     pos = pos + rng.normal(0, 0.05, pos.shape).astype(np.float32)
     box = Box.cubic(L)
     outs = {}
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     # ONE jiggle field shared by both runs: moves vacant slots to tiny
     # nonzero separations (the 0*inf=NaN regime for the uniform kernel)
-    try:
-        for uniform in (None, 1.0):
-            spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, cap=40,
-                                     uniform_sigma=uniform)
-            st, ovf = pack(pos, box, spec, jnp.zeros(n, jnp.int32),
-                           jnp.ones(n), jnp.ones(n))
-            assert not bool(ovf)
-            jig = np.random.default_rng(11).normal(
-                0, 1e-4, st.r.shape).astype(np.float32)
-            st = st.replace(r=st.r + jnp.asarray(jig))
-            outs[uniform] = pp2.packed_lj_force_pallas2(st, spec)
-    finally:
-        pp2.pl.pallas_call = orig
+    for uniform in (None, 1.0):
+        spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, cap=40,
+                                 uniform_sigma=uniform)
+        st, ovf = pack(pos, box, spec, jnp.zeros(n, jnp.int32),
+                       jnp.ones(n), jnp.ones(n))
+        assert not bool(ovf)
+        jig = np.random.default_rng(11).normal(
+            0, 1e-4, st.r.shape).astype(np.float32)
+        st = st.replace(r=st.r + jnp.asarray(jig))
+        outs[uniform] = _kernel(st, spec)
     a, b = outs[None], outs[1.0]
     assert np.isfinite(np.asarray(b.f)).all()
     np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
@@ -430,8 +421,6 @@ def test_packed_pallas2_uniform_eps_sentinel_matches_general():
     """The fully-lean kernel (uniform eps + sigma: NO se/hs stacks,
     vacancy via the VACANT_X coordinate sentinel) must match the general
     kernel on real slots, including after vacant slots drift under noise."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas2 as pp2
     from metadyn_tpu.utils.lattice import fcc_lattice
     a_lat = 1.7
     pos = fcc_lattice(6, a_lat)
@@ -440,26 +429,20 @@ def test_packed_pallas2_uniform_eps_sentinel_matches_general():
     rng = np.random.default_rng(3)
     pos = pos + rng.normal(0, 0.05, pos.shape).astype(np.float32)
     box = Box.cubic(L)
-    jig = rng.normal(0, 1e-3, (3, 1)).astype(np.float32)  # placeholder
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     outs = {}
-    try:
-        for lean in (False, True):
-            spec = PackedSpec.create(
-                L, n, r_cut=2.5, skin=0.4, cap=40,
-                uniform_sigma=1.0 if lean else None,
-                uniform_eps=1.0 if lean else None)
-            st, ovf = pack(pos, box, spec, jnp.zeros(n, jnp.int32),
-                           jnp.ones(n), jnp.ones(n))
-            assert not bool(ovf)
-            # drift ALL slots (incl. vacant/sentinel) as Langevin noise does
-            noise = np.random.default_rng(7).normal(
-                0, 1e-3, st.r.shape).astype(np.float32)
-            st = st.replace(r=st.r + jnp.asarray(noise))
-            outs[lean] = (pp2.packed_lj_force_pallas2(st, spec), st)
-    finally:
-        pp2.pl.pallas_call = orig
+    for lean in (False, True):
+        spec = PackedSpec.create(
+            L, n, r_cut=2.5, skin=0.4, cap=40,
+            uniform_sigma=1.0 if lean else None,
+            uniform_eps=1.0 if lean else None)
+        st, ovf = pack(pos, box, spec, jnp.zeros(n, jnp.int32),
+                       jnp.ones(n), jnp.ones(n))
+        assert not bool(ovf)
+        # drift ALL slots (incl. vacant/sentinel) as Langevin noise does
+        noise = np.random.default_rng(7).normal(
+            0, 1e-3, st.r.shape).astype(np.float32)
+        st = st.replace(r=st.r + jnp.asarray(noise))
+        outs[lean] = (_kernel(st, spec), st)
     (a, sta), (b, stb) = outs[False], outs[True]
     fa = np.asarray(a.f[:, sta.slot_of])   # real-slot forces
     fb = np.asarray(b.f[:, stb.slot_of])
@@ -474,8 +457,6 @@ def test_packed_pallas2_uniform_eps_sentinel_matches_general():
 def test_packed_uniform_eps_md_block():
     """Short MD with the lean kernel under repack: trajectories match the
     general-kernel engine bitwise-closely (sentinel reapplied at repack)."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas2 as pp2
     from metadyn_tpu.core.packed_engine import PackedEngine
     from metadyn_tpu.integrate.packed import make_packed_langevin_step
     from metadyn_tpu.utils.lattice import fcc_lattice
@@ -486,45 +467,41 @@ def test_packed_uniform_eps_md_block():
     box = Box.cubic(L)
     rng = np.random.default_rng(0)
     vel = rng.normal(0, 1.0, (n, 3)).astype(np.float32)
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     res = {}
-    try:
-        for lean in (False, True):
-            spec = PackedSpec.create(
-                L, n, r_cut=2.0, skin=0.4, cap=32,
-                uniform_sigma=1.0 if lean else None,
-                uniform_eps=1.0 if lean else None)
-            engine = PackedEngine(spec, rebuild_every=5, use_pallas=True)
-            st, ovf = engine.pack_state(pos, box, jnp.zeros(n, jnp.int32),
-                                        eps_i=jnp.ones(n),
-                                        sigma_i=jnp.ones(n), vel=vel)
-            assert not bool(ovf)
-            st, aux = engine.init(st)
-            step = make_packed_langevin_step(
-                lambda s: engine.force_into(s, None), dt=0.004, kT=1.0,
-                gamma=1.0)
+    for lean in (False, True):
+        spec = PackedSpec.create(
+            L, n, r_cut=2.0, skin=0.4, cap=32,
+            uniform_sigma=1.0 if lean else None,
+            uniform_eps=1.0 if lean else None)
+        engine = PackedEngine(spec, rebuild_every=5, pair_path="triton",
+                              interpret=True)
+        st, ovf = engine.pack_state(pos, box, jnp.zeros(n, jnp.int32),
+                                    eps_i=jnp.ones(n),
+                                    sigma_i=jnp.ones(n), vel=vel)
+        assert not bool(ovf)
+        st, aux = engine.init(st)
+        step = make_packed_langevin_step(
+            lambda s: engine.force_into(s, None), dt=0.004, kT=1.0,
+            gamma=1.0)
 
-            @jax.jit
-            def run(st, aux):
-                def blk(c, b):
-                    s2, a2 = engine.rebuild(*c)
-                    def body(s, i):
-                        return step(s, jax.random.fold_in(
-                            jax.random.PRNGKey(5), b * 5 + i)), None
-                    s2, _ = jax.lax.scan(body, s2, jnp.arange(5))
-                    return (s2, a2), None
-                return jax.lax.scan(blk, (st, aux), jnp.arange(6))[0]
+        @jax.jit
+        def run(st, aux):
+            def blk(c, b):
+                s2, a2 = engine.rebuild(*c)
+                def body(s, i):
+                    return step(s, jax.random.fold_in(
+                        jax.random.PRNGKey(5), b * 5 + i)), None
+                s2, _ = jax.lax.scan(body, s2, jnp.arange(5))
+                return (s2, a2), None
+            return jax.lax.scan(blk, (st, aux), jnp.arange(6))[0]
 
-            st, aux = run(st, aux)
-            assert not bool(aux.overflow)
-            # the load-bearing sentinel invariant: integrators + repacks
-            # must keep vacant slots pinned at EXACTLY VACANT_X
-            from metadyn_tpu.ops.packed import assert_no_vacant_drift
-            assert_no_vacant_drift(st, spec)
-            res[lean] = np.asarray(st.r[:, st.slot_of])
-    finally:
-        pp2.pl.pallas_call = orig
+        st, aux = run(st, aux)
+        assert not bool(aux.overflow)
+        # the load-bearing sentinel invariant: integrators + repacks
+        # must keep vacant slots pinned at EXACTLY VACANT_X
+        from metadyn_tpu.ops.packed import assert_no_vacant_drift
+        assert_no_vacant_drift(st, spec)
+        res[lean] = np.asarray(st.r[:, st.slot_of])
     np.testing.assert_allclose(res[False], res[True], rtol=1e-5, atol=1e-5)
 
 
@@ -578,7 +555,7 @@ def test_packed_npt_scr_targets_pressure():
     # headroom: generous skin so the static cell grid tolerates box
     # breathing (cell width stays >= r_list under modest compression)
     spec = PackedSpec.create(L, n, r_cut=2.0, skin=0.3, cap=24)
-    engine = PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    engine = PackedEngine(spec, rebuild_every=5, pair_path="xla",
                           with_energy=True)
     st, ovf = engine.pack_state(pos, box, jnp.zeros(n, jnp.int32),
                                 eps_i=jnp.ones(n), sigma_i=jnp.ones(n),
@@ -641,7 +618,7 @@ def test_packed_box_shape_metadynamics_smoke():
     vel = rng.normal(0, np.sqrt(kT), (n, 3)).astype(np.float32)
     vel -= vel.mean(axis=0)
     spec = PackedSpec.create(L, n, r_cut=2.0, skin=0.4, cap=32)
-    engine = PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    engine = PackedEngine(spec, rebuild_every=5, pair_path="xla",
                           with_energy=True)
     st, ovf = engine.pack_state(pos, Box.cubic(L), jnp.zeros(n, jnp.int32),
                                 eps_i=jnp.ones(n), sigma_i=jnp.ones(n),
@@ -747,7 +724,7 @@ def test_neighbor_table_mtd_run_with_repack():
     q6 = PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6")
     co = PackedCoordination(spec=spec, r0=nn * 1.35, name="co",
                             r_cut=nn * 1.35 * 1.5)
-    engine = PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    engine = PackedEngine(spec, rebuild_every=5, pair_path="xla",
                           nbr_table=(co.r_cut + spec.skin, 96))
     s0 = [float(q6.value(st, system)), float(co.value(st, system))]
     grid = GridSpec.create([0.0, 0.0], [0.7, s0[1] * 2.0], [24, 24],
@@ -799,7 +776,7 @@ def test_packed_mts_bias_every_smoke():
         q6 = PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6")
         co = PackedCoordination(spec=spec, r0=nn * 1.35, name="co",
                                 r_cut=nn * 1.35 * 1.5)
-        engine = PackedEngine(spec, rebuild_every=10, use_pallas=False)
+        engine = PackedEngine(spec, rebuild_every=10, pair_path="xla")
         grid = GridSpec.create([0.0, 0.0], [0.7, 30.0], [24, 24],
                                [0.02, 0.6])
         return MetadSampler(
@@ -826,17 +803,16 @@ def test_packed_mts_bias_every_smoke():
 
 @pytest.mark.parametrize("sentinel", [False, True],
                          ids=["validity", "sentinel"])
-def test_packed_order_pallas_interpret_matches_xla(sentinel):
-    """Pallas order-CV sweep kernels (values + bias force) == the XLA roll
-    sweep, in both vacancy encodings (validity stack / coordinate
-    sentinel).  TPU-verified at Config-3 scale (9 C-tiles, 62.5k
-    particles): max rel force diff 1.7e-6 — the parity must be checked on
-    a NOISY configuration (on a perfect fcc lattice the Q6 bias force
-    vanishes by symmetry and any relative comparison is meaningless)."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_order_pallas as pop
+def test_packed_order_sweep_matches_references(sentinel):
+    """The fused XLA order sweep (the path Config 3 runs on every
+    platform) == plain references, in both vacancy encodings: Q6 against
+    cv.steinhardt.SteinhardtQl on the unpacked positions, coordination
+    against a direct O(N²) minimum-image sum of the stretched switching
+    function."""
     from metadyn_tpu.cv.packed_order import (
         PackedSteinhardtQl, PackedCoordination, make_fused_order_force)
+    from metadyn_tpu.cv.steinhardt import SteinhardtQl
+    from metadyn_tpu.core.state import make_state, make_system
     from metadyn_tpu.utils.lattice import fcc_lattice
 
     a_lat = 1.62
@@ -853,26 +829,28 @@ def test_packed_order_pallas_interpret_matches_xla(sentinel):
     assert not bool(ovf)
 
     nn = a_lat / np.sqrt(2)
-    cvs = [PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6"),
-           PackedCoordination(spec=spec, r0=nn * 1.35, name="co",
-                              r_cut=nn * 1.35 * 1.5)]
-    v_x, f_x = make_fused_order_force(cvs, spec, use_pallas=False)
-    v_p, f_p = make_fused_order_force(cvs, spec, use_pallas=True)
-    dV = jnp.asarray([0.9, -1.3], jnp.float32)
+    rq, r0 = nn * 1.2, nn * 1.35
+    rc = r0 * 1.5
+    cvs = [PackedSteinhardtQl(spec=spec, r_cut=rq, l=6, name="q6"),
+           PackedCoordination(spec=spec, r0=r0, name="co", r_cut=rc)]
+    values, _ = make_fused_order_force(cvs, spec)
+    s, _ = values(st)
 
-    orig = pl.pallas_call
-    pop.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        s_x, ctx_x = v_x(st)
-        s_p, ctx_p = v_p(st)
-        np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x),
-                                   rtol=2e-5)
-        g_x = np.asarray(f_x(st, ctx_x, dV))
-        g_p = np.asarray(f_p(st, ctx_p, dV))
-        scale = np.abs(g_x).max()
-        np.testing.assert_allclose(g_p, g_x, rtol=2e-3, atol=2e-4 * scale)
-    finally:
-        pop.pl.pallas_call = orig
+    system = make_system(n)
+    pstate = make_state(jnp.asarray(np.asarray(unpack_positions(st, spec))),
+                        box)
+    q6_ref = SteinhardtQl(r_cut=rq, l=6).value(pstate, system)
+    np.testing.assert_allclose(float(s[0]), float(q6_ref), rtol=2e-4)
+
+    p = np.asarray(unpack_positions(st, spec), np.float64)
+    d = p[:, None, :] - p[None, :, :]
+    d -= L * np.round(d / L)
+    r2 = (d * d).sum(-1)
+    np.fill_diagonal(r2, np.inf)
+    sw = 1.0 / (1.0 + (r2 / r0 ** 2) ** 3)
+    sc = 1.0 / (1.0 + (rc / r0) ** 6)
+    coord = np.where(r2 < rc ** 2, (sw - sc) / (1.0 - sc), 0.0).sum() / n
+    np.testing.assert_allclose(float(s[1]), coord, rtol=2e-5)
 
 
 def test_packed_npt_cell_width_guard():
@@ -883,7 +861,7 @@ def test_packed_npt_cell_width_guard():
     from metadyn_tpu.integrate.packed import make_packed_npt_scr_step
 
     pos, n, box, spec, st, ovf = _fcc_case(ncell=5, a=1.9)
-    engine = PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    engine = PackedEngine(spec, rebuild_every=5, pair_path="xla",
                           with_energy=True)
     st, aux = engine.init(st)
     m0 = jax.device_get(engine.metrics(st, aux))

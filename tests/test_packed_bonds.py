@@ -18,6 +18,12 @@ from metadyn_tpu.ops.bonds import FENEBondParams
 from metadyn_tpu.core.forcefield import ForceField
 from metadyn_tpu.integrate.langevin import make_langevin_step
 from metadyn_tpu.integrate.packed import make_packed_langevin_step
+from metadyn_tpu.ops.packed_triton import packed_lj_force_triton
+
+
+def _kernel(st, spec, **kw):
+    """The Triton pair kernel through the Pallas interpreter."""
+    return packed_lj_force_triton(st, spec, interpret=True, **kw)
 from metadyn_tpu.integrate.base import run_steps
 from metadyn_tpu.utils.lattice import polymer_melt
 
@@ -87,8 +93,6 @@ def test_packed_bonded_force_matches_oracle():
 
 @pytest.mark.smoke
 def test_packed_pallas_bonds_interpret():
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas as pp
     pos, bonds, system = _relaxed_melt(n_chains=10, chain_len=8)
     n = pos.shape[0]
     L = 12.0
@@ -99,12 +103,7 @@ def test_packed_pallas_bonds_interpret():
                    jnp.ones(n), jnp.ones(n),
                    extra_attrs=bond_partner_attrs(bonds, n))
     a = packed_lj_force(st, spec)
-    orig = pl.pallas_call
-    pp.pl.pallas_call = lambda *x, **k: orig(*x, **{**k, "interpret": True})
-    try:
-        b = pp.packed_lj_force_pallas(st, spec)
-    finally:
-        pp.pl.pallas_call = orig
+    b = _kernel(st, spec)
     np.testing.assert_allclose(float(a.potential_energy),
                                float(b.potential_energy), rtol=1e-4)
     np.testing.assert_allclose(np.asarray(a.f), np.asarray(b.f),
@@ -120,7 +119,7 @@ def test_packed_melt_md_stable():
     box = Box.cubic(L)
     spec = PackedSpec.create(L, n, r_cut=2.0 ** (1 / 6), skin=0.4, cap=32,
                              fene_k=30.0, fene_r0=1.5)
-    engine = PackedEngine(spec, use_pallas=False)
+    engine = PackedEngine(spec, pair_path="xla")
     st, ovf = engine.pack_state(pos, box, jnp.zeros(n, jnp.int32),
                                 eps_i=jnp.ones(n), sigma_i=jnp.ones(n),
                                 extra_attrs=bond_partner_attrs(bonds, n))
@@ -215,23 +214,10 @@ def test_packed_bond_past_rcut_keeps_fene():
 
 @pytest.mark.smoke
 def test_packed_pallas_bond_past_rcut_keeps_fene():
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas as pp
-    import metadyn_tpu.ops.packed_pallas2 as pp2
     pos, bonds, box, L = _stretched_pair_setup()
     e_ref, f_ref = _oracle_force(pos, bonds, box)
     st, spec = _packed_state_for(pos, bonds, box, L)
-    orig = pl.pallas_call
-    patched = lambda *x, **k: orig(*x, **{**k, "interpret": True})
-    pp.pl.pallas_call = patched
-    pp2.pl.pallas_call = patched
-    try:
-        a = pp.packed_lj_force_pallas(st, spec)
-        b = pp2.packed_lj_force_pallas2(st, spec)
-    finally:
-        pp.pl.pallas_call = orig
-        pp2.pl.pallas_call = orig
-    for res in (a, b):
+    for res in (_kernel(st, spec), _kernel(st, spec, block=128)):
         np.testing.assert_allclose(float(res.potential_energy), e_ref,
                                    rtol=1e-4)
         f = np.asarray(res.f[:, res.slot_of].T)
@@ -267,21 +253,8 @@ def test_packed_branched_topology_star():
     np.testing.assert_allclose(float(st_x.potential_energy), e_ref, rtol=1e-4)
     np.testing.assert_allclose(np.asarray(st_x.f[:, st_x.slot_of].T), f_ref,
                                rtol=1e-3, atol=1e-4)
-    # both Pallas kernels (interpret)
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas as pp
-    import metadyn_tpu.ops.packed_pallas2 as pp2
-    orig = pl.pallas_call
-    patched = lambda *x, **k: orig(*x, **{**k, "interpret": True})
-    pp.pl.pallas_call = patched
-    pp2.pl.pallas_call = patched
-    try:
-        a = pp.packed_lj_force_pallas(st, spec)
-        b = pp2.packed_lj_force_pallas2(st, spec)
-    finally:
-        pp.pl.pallas_call = orig
-        pp2.pl.pallas_call = orig
-    for res in (a, b):
+    # the Triton kernel (interpret)
+    for res in (_kernel(st, spec),):
         np.testing.assert_allclose(float(res.potential_energy), e_ref,
                                    rtol=1e-4)
         np.testing.assert_allclose(np.asarray(res.f[:, res.slot_of].T),
@@ -408,9 +381,7 @@ def test_packed_harmonic_bonds_match_oracle():
 
 
 def test_packed_harmonic_bonds_pallas2_interpret():
-    """The Newton-halved Pallas kernel dispatches the same bond_kind."""
-    from jax.experimental import pallas as pl
-    import metadyn_tpu.ops.packed_pallas2 as pp2
+    """The Triton pair kernel dispatches the same bond_kind."""
 
     pos, bonds, system = _relaxed_melt(n_chains=10, chain_len=8)
     n = pos.shape[0]
@@ -423,13 +394,7 @@ def test_packed_harmonic_bonds_pallas2_interpret():
                    extra_attrs=bond_partner_attrs(bonds, n))
     assert not bool(ovf)
     a = packed_lj_force(st, spec)
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *ar, **k: orig(*ar, **{**k,
-                                                       "interpret": True})
-    try:
-        b = pp2.packed_lj_force_pallas2(st, spec)
-    finally:
-        pp2.pl.pallas_call = orig
+    b = _kernel(st, spec)
     np.testing.assert_allclose(float(a.potential_energy),
                                float(b.potential_energy), rtol=1e-4)
     scale = float(jnp.abs(a.f).max())
@@ -489,7 +454,7 @@ def test_packed_harmonic_bonds_under_spatial_dd(dd):
     spec1 = PackedSpec.create(L, n, r_cut=2.0 ** (1 / 6), skin=0.85, cap=48,
                               fene_k=80.0, fene_r0=1.0,
                               bond_kind="harmonic")
-    p_ref = run(PackedEngine(spec1, rebuild_every=5, use_pallas=False),
+    p_ref = run(PackedEngine(spec1, rebuild_every=5, pair_path="xla"),
                 spec1)
     spec2 = PackedSpec.create(L, n, r_cut=2.0 ** (1 / 6), skin=0.85, cap=48,
                               fene_k=80.0, fene_r0=1.0,

@@ -10,7 +10,6 @@ import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 from metadyn_tpu.core.box import Box
 from metadyn_tpu.ops.packed import (PackedSpec, pack, packed_lj_force,
@@ -63,17 +62,12 @@ def test_packed_table_matches_particle_order(with_sigma):
 
 
 def test_packed_table_pallas2_matches_xla():
-    import metadyn_tpu.ops.packed_pallas2 as pp2
+    """The Triton pair kernel (interpret) on the ε/σ pair table."""
+    from metadyn_tpu.ops.packed_triton import packed_lj_force_triton
 
     pos, types, L, spec, st = _case(True)
     a = packed_lj_force(st, spec)
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *ar, **k: orig(*ar, **{**k,
-                                                       "interpret": True})
-    try:
-        b = pp2.packed_lj_force_pallas2(st, spec)
-    finally:
-        pp2.pl.pallas_call = orig
+    b = packed_lj_force_triton(st, spec, interpret=True)
     np.testing.assert_allclose(float(a.potential_energy),
                                float(b.potential_energy), rtol=1e-4)
     scale = float(jnp.abs(a.f).max())
@@ -188,7 +182,7 @@ def test_pair_tables_under_spatial_dd(dd):
         return st
 
     from metadyn_tpu.core.packed_engine import PackedEngine
-    ref_eng = PackedEngine(spec, use_pallas=False, with_energy=True)
+    ref_eng = PackedEngine(spec, pair_path="xla", with_energy=True)
     st_ref = pack_into(ref_eng)
     ref = ref_eng._force_e(st_ref, spec)
 

@@ -182,7 +182,7 @@ def test_sharded_biased_md_steps_match_single_device():
                 f, dt=0.002, kT=1.0, gamma=1.0),
             seed=0, chunks_per_block=2)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False))
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"))
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
     s_dd = build(SpatialPackedEngine(spec, mesh, rebuild_every=5))
 
@@ -365,7 +365,7 @@ def test_walkers_times_space_product_mesh():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False),
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"),
                   Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(50)
 
@@ -401,8 +401,7 @@ def test_walkers_times_space_product_mesh():
 @pytest.mark.smoke
 def test_order_cvs_under_spatial_dd():
     """Steinhardt Q6 + coordination CVs under spatial DD: the packed
-    order CVs are pure roll-sweep jnp (the sampler forces use_pallas off
-    for any spatial engine), so GSPMD turns their cross-shard rolls into
+    order CVs are pure roll-sweep jnp, so GSPMD turns their cross-shard rolls into
     collectives — biased MD on the sharded engine must match the
     single-device run (SURVEY.md §2b Communicator row: 'the plugin's CVs
     allreduce partial sums' — ALL CVs, not just lamellar/mesh/msd)."""
@@ -449,7 +448,7 @@ def test_order_cvs_under_spatial_dd():
                 f, dt=0.002, kT=0.3, gamma=1.0),
             seed=0, chunks_per_block=1)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False))
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"))
     h_ref = s_ref.run(20)
 
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
@@ -532,7 +531,7 @@ def test_product_mesh_trajectory_oracle_always_repack():
 
     devs = np.asarray(jax.devices())
     s_ref = build(
-        PackedEngine(spec, rebuild_every=5, use_pallas=False,
+        PackedEngine(spec, rebuild_every=5, pair_path="xla",
                      always_repack=True),
         Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(150)     # 30 unconditional repacks, dt 4e-3
@@ -630,7 +629,7 @@ def test_order_cvs_on_product_mesh():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False),
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"),
                   Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(50)
     mesh2 = Mesh(devs[:4].reshape(2, 2), ("walkers", "space"))
@@ -691,12 +690,12 @@ def test_npt_wte_under_spatial_dd():
                 tau_p=1.0),
             seed=0, chunks_per_block=2)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla",
                                with_energy=True))
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
     s_dd = build(SpatialPackedEngine(spec, mesh, rebuild_every=5,
                                      with_energy=True))
-    assert not s_dd.engine.pair_pallas
+    assert s_dd.engine.energy_live
 
     h_ref = s_ref.run(100)
     h_dd = s_dd.run(100)
@@ -768,7 +767,7 @@ def test_mesh_cv_on_product_mesh():
         return st
 
     # grid sized from the initial CV value (deposits must not clamp)
-    eng0 = PackedEngine(spec, use_pallas=False)
+    eng0 = PackedEngine(spec, pair_path="xla")
     st0 = pack_one(eng0, 0)
     s0 = float(jax.jit(lambda s: ref_cv.value(s, system))(st0))
     hi = max(8.0 * s0, 10.0)
@@ -786,7 +785,7 @@ def test_mesh_cv_on_product_mesh():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False),
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"),
                   Mesh(devs[:2], ("walkers",)), ref_cv)
     h_ref = s_ref.run(50)
 
@@ -859,14 +858,14 @@ def test_npt_wte_on_product_mesh():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla",
                                with_energy=True),
                   Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(100)
     mesh2 = Mesh(devs[:4].reshape(2, 2), ("walkers", "space"))
     s2 = build(SpatialPackedEngine(spec, mesh2, rebuild_every=5,
                                    nested=True, with_energy=True), mesh2)
-    assert not s2.engine.pair_pallas
+    assert s2.engine.energy_live
     h2 = s2.run(100)
 
     m_ref, m2 = h_ref[-1], h2[-1]
@@ -934,7 +933,7 @@ def test_box_metadynamics_under_spatial_dd():
                                   deltaT=4.0),
             integrator_factory=factory, seed=0, chunks_per_block=2)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla",
                                with_energy=True))
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
     s_dd = build(SpatialPackedEngine(spec, mesh, rebuild_every=5,
@@ -1009,7 +1008,7 @@ def test_triclinic_under_spatial_dd():
         assert not bool(ovf)
         return st
 
-    eng_ref = PackedEngine(spec, rebuild_every=5, use_pallas=False)
+    eng_ref = PackedEngine(spec, rebuild_every=5, pair_path="xla")
     eng_dd = SpatialPackedEngine(spec, mesh, rebuild_every=5)
 
     # (1) force/energy/virial parity in the tilted cell
@@ -1057,7 +1056,7 @@ def test_triclinic_under_spatial_dd():
                 f, dt=0.004, kT=1.0, gamma=1.0),
             seed=0, chunks_per_block=1)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False))
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"))
     h_ref = s_ref.run(100)
     s_dd = build(SpatialPackedEngine(spec, mesh, rebuild_every=5))
     h_dd = s_dd.run(100)
@@ -1127,7 +1126,7 @@ def test_triclinic_on_product_mesh():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False),
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"),
                   Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(50)
     mesh2 = Mesh(devs[:4].reshape(2, 2), ("walkers", "space"))

@@ -44,7 +44,7 @@ def test_2d_force_matches_single_device():
     L = float(box.L[0])
     spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.5, cap=24,
                              shift_energy=False)
-    eng_ref = PackedEngine(spec, use_pallas=False)
+    eng_ref = PackedEngine(spec, pair_path="xla")
     eng_2d = SpatialPackedEngine2D(spec, _mesh2d())
 
     def forces(engine):
@@ -74,7 +74,7 @@ def test_2d_repack_bit_identical_to_single_device():
     L = float(box.L[0])
     spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.5, cap=24,
                              shift_energy=False)
-    eng = PackedEngine(spec, use_pallas=False)
+    eng = PackedEngine(spec, pair_path="xla")
     st, ovf = eng.pack_state(pos, box, np.zeros(n, np.int32),
                              eps_i=np.ones(n, np.float32),
                              sigma_i=np.ones(n, np.float32), vel=vel)
@@ -134,7 +134,7 @@ def test_2d_biased_md_matches_single_device():
                 f, dt=0.004, kT=1.0, gamma=1.0),
             seed=0, chunks_per_block=1)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False))
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"))
     h_ref = s_ref.run(100)
     s_2d = build(SpatialPackedEngine2D(spec, _mesh2d(), rebuild_every=5))
     h_2d = s_2d.run(100)
@@ -257,7 +257,7 @@ def test_2d_npt_wte_matches_single_device():
                 tau_p=1.0),
             seed=0, chunks_per_block=2)
 
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False,
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla",
                                with_energy=True))
     s_dd = build(SpatialPackedEngine2D(spec, _mesh2d(), rebuild_every=5))
 
@@ -384,7 +384,7 @@ def test_walkers_times_2d_space():
             seed=0, chunks_per_block=1, mesh=mesh)
 
     devs = np.asarray(jax.devices())
-    s_ref = build(PackedEngine(spec, rebuild_every=5, use_pallas=False),
+    s_ref = build(PackedEngine(spec, rebuild_every=5, pair_path="xla"),
                   Mesh(devs[:2], ("walkers",)))
     h_ref = s_ref.run(50)
 

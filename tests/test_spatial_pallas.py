@@ -1,23 +1,18 @@
-"""Pallas pair kernel inside the spatial shard_map island.
+"""The Triton pair kernel inside the spatial shard_map islands.
 
-Round-4 DD-tax measurement: the sharded engine's forced XLA roll path
-cost 2.9× at Config-3 scale while the halo overhead was ~4% — so the
-Pallas kernel on the halo-extended local grid is the multi-chip lever
-(measured 11.8M → 20.15M at 1 device on the real chip).  Correctness
-argument (see make_sharded_lj_force docstring): with Newton halving each
-pair is enumerated once; ghost-row forces are discarded and recomputed
-by the owning neighbor; roll-wrapped pairs of the non-periodic extended
-grid are always ghost↔ghost.  This test pins force parity against the
-XLA cell-mask island (whose trajectory-level differential vs the
-single-device engine lives in test_spatial.py); the MD-scan behavior is
-identical because both paths feed the same engine protocol.
+Correctness argument (see make_sharded_lj_force): interior i-cells have
+all 26 neighbour cells inside the halo-extended local grid, so their
+forces are exact; ghost-plane forces are discarded and the cell mask
+keeps ghost i-cells out of the energy/virial sums.  These tests pin the
+kernel path (interpret mode) against the XLA cell-mask island, whose
+trajectory-level differential vs the single-device engine lives in
+test_spatial.py.
 """
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 from jax.sharding import Mesh
 
 from metadyn_tpu.core.box import Box
@@ -34,10 +29,9 @@ from metadyn_tpu.utils.lattice import fcc_lattice
     "sentinel", [pytest.param(False, marks=pytest.mark.smoke), True],
     ids=["general", "sentinel"])
 def test_spatial_pair_pallas_matches_xla(sentinel, dd):
-    """Newton-halved Pallas pair kernel on the halo-extended local grid
-    == the XLA cell-mask island, for BOTH decompositions (round-4
-    VERDICT missing #4: the 2-D engine shipped XLA-only)."""
-    import metadyn_tpu.ops.packed_pallas2 as pp2
+    """Triton pair kernel on the halo-extended local grid == the XLA
+    cell-mask island, for BOTH decompositions: forces on inner steps,
+    and energy + virial on the refresh path."""
     from metadyn_tpu.parallel.spatial2d import SpatialPackedEngine2D
 
     a = 2.0
@@ -49,126 +43,46 @@ def test_spatial_pair_pallas_matches_xla(sentinel, dd):
     pos = pos + rng.normal(0, 0.06, pos.shape).astype(np.float32)
     kw = dict(uniform_sigma=1.0, uniform_eps=1.0) if sentinel else {}
 
-    def forces(pair_pallas):
+    def forces(pair_path):
         spec = PackedSpec.create(L, n, r_cut=1.5, skin=0.5, cap=16,
                                  shift_energy=False, **kw)
         if dd == "1d":
             mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
             engine = SpatialPackedEngine(spec, mesh, rebuild_every=5,
-                                         pair_pallas=pair_pallas)
+                                         pair_path=pair_path,
+                                         interpret=True)
         else:
             mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
                         ("spacex", "spacey"))
             engine = SpatialPackedEngine2D(spec, mesh, rebuild_every=5,
-                                           pair_pallas=pair_pallas)
-        assert engine.pair_pallas == pair_pallas
+                                           pair_path=pair_path,
+                                           interpret=True)
+        assert engine.pair_path == pair_path
+        assert engine.energy_live == (pair_path == "xla")
         st, ovf = engine.pack_state(
             pos, box, np.zeros(n, np.int32), eps_i=np.ones(n, np.float32),
             sigma_i=np.ones(n, np.float32))
         assert not bool(ovf)
         f = jax.jit(lambda s: engine.force_into(s, None).f)(st)
-        # the energy path must stay on the XLA cell-mask island
-        e = float(jax.jit(
-            lambda s: engine.refresh_energy(s, None).potential_energy)(st))
-        return np.asarray(f), e
+        ref = jax.jit(lambda s: engine.refresh_energy(s, None))(st)
+        return (np.asarray(f), float(ref.potential_energy),
+                np.asarray(ref.virial))
 
-    orig = pl.pallas_call
-    pp2.pl.pallas_call = lambda *ar, **k: orig(*ar, **{**k,
-                                                       "interpret": True})
-    try:
-        f_p, e_p = forces(True)
-    finally:
-        pp2.pl.pallas_call = orig
-    f_x, e_x = forces(False)
+    f_p, e_p, w_p = forces("triton")
+    f_x, e_x, w_x = forces("xla")
 
     scale = np.abs(f_x).max()
     np.testing.assert_allclose(f_p, f_x, rtol=1e-4, atol=1e-5 * scale)
     np.testing.assert_allclose(e_p, e_x, rtol=1e-5)
-
-
-@pytest.mark.parametrize(
-    "dd", ["1d", pytest.param("2d", marks=pytest.mark.smoke)])
-@pytest.mark.parametrize(
-    "sentinel", [pytest.param(False, marks=pytest.mark.smoke), True],
-    ids=["general", "sentinel"])
-def test_sharded_order_parts_match_gspmd_sweep(sentinel, dd):
-    """Pallas order-CV sweeps inside the spatial islands
-    (make_sharded_order_parts / _2d) == the GSPMD XLA roll sweep: values
-    (via the interior-cell pair mask + psum) and bias forces
-    (ghost-discard) — the round-4 DD-tax closer, correctness side.  The
-    2-D case exercises the corner-carrying two-hop extension."""
-    import metadyn_tpu.ops.packed_order_pallas as pop
-    from metadyn_tpu.core.state import make_system
-    from metadyn_tpu.cv.packed_order import (PackedSteinhardtQl,
-                                             PackedCoordination,
-                                             make_fused_order_force)
-    from metadyn_tpu.parallel.spatial import SpatialPackedEngine
-    from metadyn_tpu.parallel.spatial2d import SpatialPackedEngine2D
-
-    a_lat = 1.62
-    pos = fcc_lattice(8, a_lat)       # cx = 6 cells: divisible by 2
-    n = pos.shape[0]
-    L = 8 * a_lat
-    rng = np.random.default_rng(7)
-    pos = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
-    box = Box.cubic(L)
-    system = make_system(n)
-    nn = a_lat / np.sqrt(2)
-    kw = dict(uniform_sigma=1.0, uniform_eps=1.0) if sentinel else {}
-    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.5, cap=40,
-                             shift_energy=False, **kw)
-    cvs = [PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6"),
-           PackedCoordination(spec=spec, r0=nn * 1.35,
-                              r_cut=nn * 1.35 * 1.5, name="co")]
-    if dd == "1d":
-        mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
-        engine = SpatialPackedEngine(spec, mesh, rebuild_every=5,
-                                     order_pallas=True)
-    else:
-        mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
-                    ("spacex", "spacey"))
-        engine = SpatialPackedEngine2D(spec, mesh, rebuild_every=5,
-                                       order_pallas=True)
-    st, ovf = engine.pack_state(pos, box, np.zeros(n, np.int32),
-                                eps_i=np.ones(n, np.float32),
-                                sigma_i=np.ones(n, np.float32))
-    assert not bool(ovf)
-
-    xla_values, xla_force = make_fused_order_force(cvs, spec,
-                                                   use_pallas=False)
-    dVds = jnp.asarray([0.7, -0.3], jnp.float32)
-    s_ref = jax.jit(lambda s: xla_values(s)[0])(st)
-    g_ref = jax.jit(
-        lambda s: xla_force(s, xla_values(s)[1], dVds))(st)
-
-    orig = pl.pallas_call
-    pop.pl.pallas_call = lambda *ar, **k: orig(*ar, **{**k,
-                                                       "interpret": True})
-    try:
-        values_fn, force_fn = engine.make_order_parts(cvs)
-        s_dd = jax.jit(lambda s: values_fn(s)[0])(st)
-        g_dd = jax.jit(
-            lambda s: force_fn(s, values_fn(s)[1], dVds))(st)
-    finally:
-        pop.pl.pallas_call = orig
-
-    np.testing.assert_allclose(np.asarray(s_dd), np.asarray(s_ref),
-                               rtol=5e-5, atol=1e-6)
-    scale = float(np.abs(np.asarray(g_ref)).max())
-    np.testing.assert_allclose(np.asarray(g_dd), np.asarray(g_ref),
-                               rtol=1e-3, atol=2e-5 * scale)
+    np.testing.assert_allclose(w_p, w_x, rtol=1e-4)
 
 
 @pytest.mark.smoke
 def test_product_mesh_pallas_kernels_match_xla():
-    """pair_pallas + order_pallas inside NESTED (walkers x space)
-    islands: the full Pallas kernel set runs on the product mesh
-    (round-4 weak #6: the most parallel topology was pinned to the XLA
-    path).  2 walkers x 2 shards, 50 biased MD steps with Q6 +
-    coordination: trajectories and the shared bias grid match the
-    XLA-path product run."""
-    import metadyn_tpu.ops.packed_pallas2 as pp2
-    import metadyn_tpu.ops.packed_order_pallas as pop
+    """The Triton pair kernel inside NESTED (walkers x space) islands.
+    2 walkers x 2 shards, 50 biased MD steps with Q6 + coordination:
+    trajectories and the shared bias grid match the XLA-path product
+    run."""
     from metadyn_tpu.core.state import make_system
     from metadyn_tpu.cv.packed_order import (PackedSteinhardtQl,
                                              PackedCoordination)
@@ -193,10 +107,10 @@ def test_product_mesh_pallas_kernels_match_xla():
     mesh2 = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
                  ("walkers", "space"))
 
-    def build(pallas_on):
+    def build(pair_path):
         engine = SpatialPackedEngine(spec, mesh2, rebuild_every=5,
-                                     nested=True, pair_pallas=pallas_on,
-                                     order_pallas=pallas_on)
+                                     nested=True, pair_path=pair_path,
+                                     interpret=True)
         cvs = [PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6,
                                   name="q6"),
                PackedCoordination(spec=spec, r0=nn * 1.35,
@@ -223,17 +137,9 @@ def test_product_mesh_pallas_kernels_match_xla():
                 f, dt=0.001, kT=0.7, gamma=1.0),
             seed=0, chunks_per_block=1, mesh=mesh2)
 
-    orig = pl.pallas_call
-    patch = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    pp2.pl.pallas_call = patch
-    pop.pl.pallas_call = patch
-    try:
-        s_p = build(True)
-        h_p = s_p.run(50)
-    finally:
-        pp2.pl.pallas_call = orig
-        pop.pl.pallas_call = orig
-    s_x = build(False)
+    s_p = build("triton")
+    h_p = s_p.run(50)
+    s_x = build("xla")
     h_x = s_x.run(50)
 
     assert int(s_p.bias.n_hills) == int(s_x.bias.n_hills) == 4
@@ -244,115 +150,3 @@ def test_product_mesh_pallas_kernels_match_xla():
                                np.asarray(s_x.bias.grid.V),
                                rtol=1e-3, atol=2e-5)
     assert not np.any(np.asarray(h_p[-1]["nlist_overflow"]))
-
-
-def test_sharded_lagged_fused_matches_global():
-    """The sharded lagged-MTS fused kernel (make_sharded_lagged_parts)
-    == the global mono-mode fused traversal, given the SAME lagged terms
-    and bias: LJ force, bias force (ghost-discard) and fresh value sums
-    (interior-mask + psum).  Then a 40-step MetadSampler(mts_lag=True)
-    run on the DD engine stays finite and deposits — the round-5 closer
-    for the last single-device-only stage of the Config-3 hot path."""
-    import metadyn_tpu.ops.packed_fused_pallas as pfp
-    import metadyn_tpu.ops.packed_order_pallas as pop
-    import metadyn_tpu.ops.packed_pallas2 as pp2
-    from metadyn_tpu.core.state import make_system
-    from metadyn_tpu.cv.packed_order import (PackedSteinhardtQl,
-                                             PackedCoordination)
-    from metadyn_tpu.ops.packed_fused_pallas import fused_lj_order_force
-    from metadyn_tpu.bias.grid import GridSpec
-    from metadyn_tpu.bias.metad import BiasState, HillSpec, WELL_TEMPERED
-    from metadyn_tpu.sampler import MetadSampler, lag_supported
-    from metadyn_tpu.integrate.packed import make_packed_langevin_step
-
-    a_lat = 1.62
-    pos = fcc_lattice(8, a_lat)
-    n = pos.shape[0]
-    L = 8 * a_lat
-    rng = np.random.default_rng(9)
-    pos = (pos + rng.normal(0, 0.05, pos.shape)).astype(np.float32)
-    box = Box.cubic(L)
-    system = make_system(n)
-    nn = a_lat / np.sqrt(2)
-    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, cap=40,
-                             uniform_sigma=1.0, uniform_eps=1.0,
-                             shift_energy=False)
-    cvs = [PackedSteinhardtQl(spec=spec, r_cut=nn * 1.2, l=6, name="q6"),
-           PackedCoordination(spec=spec, r0=nn * 1.35,
-                              r_cut=nn * 1.35 * 1.5, name="co")]
-    mesh = Mesh(np.asarray(jax.devices()[:2]), ("space",))
-    engine = SpatialPackedEngine(spec, mesh, rebuild_every=5,
-                                 pair_pallas=True, order_pallas=True)
-    assert lag_supported(engine, cvs)
-    st, ovf = engine.pack_state(pos, box, np.zeros(n, np.int32),
-                                eps_i=np.ones(n, np.float32),
-                                sigma_i=np.ones(n, np.float32))
-    assert not bool(ovf)
-
-    grid = GridSpec.create([0.0, 4.0], [0.7, 28.0], [32, 32], [0.02, 0.5])
-    bias = BiasState.zeros(grid)
-    bias = bias.replace(grid=bias.grid.replace(
-        dV=bias.grid.dV + 0.3))      # nonzero dV/ds so forces are live
-
-    orig = pl.pallas_call
-    patch = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    pfp.pl.pallas_call = patch
-    pop.pl.pallas_call = patch
-    pp2.pl.pallas_call = patch
-    try:
-        seed_eval, fused_force = engine.make_lagged_parts(cvs)
-        g0, terms0 = jax.jit(lambda s: seed_eval(s, bias))(st)
-        f_dd, g_dd, t_dd = jax.jit(
-            lambda s, t: fused_force(s, bias, t))(st, terms0)
-
-        # global mono-mode reference with identical aux coefficients
-        from metadyn_tpu.bias.metad import bias_value_and_grad
-
-        def global_ref(s, terms):
-            sv = jnp.stack([cv.finalize_value(t)
-                            for cv, t in zip(cvs, terms)])
-            _, dVds = bias_value_and_grad(bias, sv)
-            auxs = [cv.grad_aux(t, dVds[i])
-                    for i, (cv, t) in enumerate(zip(cvs, terms))]
-            return fused_lj_order_force(s, spec, cvs, auxs, mono=True)
-
-        f_x, g_x, t_x = jax.jit(global_ref)(st, terms0)
-    finally:
-        pfp.pl.pallas_call = orig
-        pop.pl.pallas_call = orig
-        pp2.pl.pallas_call = orig
-
-    scale_f = float(np.abs(np.asarray(f_x)).max())
-    np.testing.assert_allclose(np.asarray(f_dd), np.asarray(f_x),
-                               rtol=1e-4, atol=1e-5 * scale_f)
-    scale_g = float(np.abs(np.asarray(g_x)).max())
-    np.testing.assert_allclose(np.asarray(g_dd), np.asarray(g_x),
-                               rtol=1e-3, atol=2e-5 * scale_g)
-    for a, b in zip(jax.tree.leaves(t_dd), jax.tree.leaves(t_x)):
-        # partition-dependent pair summation order: f32 reassociation
-        # noise on large-cancellation sums (per-m Y_lm terms)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-3, atol=1e-5)
-
-    # end-to-end: the DD sampler runs the lagged path
-    orig = pl.pallas_call
-    pfp.pl.pallas_call = patch
-    pop.pl.pallas_call = patch
-    pp2.pl.pallas_call = patch
-    try:
-        s2 = MetadSampler(
-            system, st, engine, cvs=cvs, grid_spec=grid,
-            hills=HillSpec.create(W=0.4, stride=20, mode=WELL_TEMPERED,
-                                  deltaT=5.0),
-            integrator_factory=lambda f: make_packed_langevin_step(
-                f, dt=0.004, kT=0.7, gamma=1.0),
-            seed=0, chunks_per_block=1, bias_every=5, mts_lag=True)
-        h = s2.run(40)
-    finally:
-        pfp.pl.pallas_call = orig
-        pop.pl.pallas_call = orig
-        pp2.pl.pallas_call = orig
-    m = h[-1]
-    assert not bool(np.asarray(m["nlist_overflow"]))
-    assert np.isfinite(np.asarray(m["cv"])).all()
-    assert int(s2.bias.n_hills) == 2

@@ -1,5 +1,5 @@
 """Multi-walker metadynamics on the 8-virtual-device CPU mesh
-(SURVEY.md §4.5 — the same shard_map/psum code runs on a TPU slice)."""
+(SURVEY.md §4.5 — the same shard_map/psum code runs on several GPUs)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,7 +182,7 @@ def test_walkers_with_packed_engine():
     kT = 1.0
     spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.5, cap=40,
                              shift_energy=False)
-    engine = PackedEngine(spec, rebuild_every=5, use_pallas=False)
+    engine = PackedEngine(spec, rebuild_every=5, pair_path="xla")
     system = make_system(n)
     cv = PackedLamellar.create([[0, 0, 2]], n_real=n, name="a")
     amps = np.ones(n, np.float32)
@@ -348,7 +348,7 @@ def test_walker_bias_every_mts():
     amps = np.ones(n, np.float32)
 
     def build(bias_every):
-        engine = PackedEngine(spec, rebuild_every=5, use_pallas=False)
+        engine = PackedEngine(spec, rebuild_every=5, pair_path="xla")
 
         def pack_one(w):
             rng = np.random.default_rng(w)
